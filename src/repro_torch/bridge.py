@@ -1,0 +1,35 @@
+"""Weight bridge: a JAX parameter tree, as nested dicts of numpy arrays,
+into the port's tensors.
+
+The port keeps the JAX package's layouts, so the bridge copies leaves and
+transposes nothing: blocks stay stacked over a leading period axis under
+``blocks/blk{j}`` (repro/models/transformer.py:init_params), ``wq``/``wk``/
+``wv`` stay (d, h, hd), ``wo`` (h, hd, d), ``w_up`` (d, d_ff) and
+``w_down`` (d_ff, d). A GECToR tree (``encoder`` plus ``detect_head`` and
+``label_head``) bridges the same way. The caller converts the JAX arrays
+to numpy (``jax.tree.map(np.asarray, params)``); nothing here imports jax.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.array(a)                       # a writable copy
+    if a.dtype.name == "bfloat16":        # ml_dtypes.bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def to_torch(tree, *, device=None):
+    """Nested dicts of numpy arrays -> nested dicts of tensors on
+    ``device`` (default: the card), dtypes kept."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device=dev) for k, v in tree.items()}
+    return _leaf(tree, dev)
+

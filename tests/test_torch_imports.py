@@ -1,0 +1,41 @@
+"""The port stands alone: ``src/repro_torch/**`` and ``chip_smoke.py``
+import neither ``jax`` nor anything of the JAX package ``repro`` (the
+machine with the card has no JAX). Checked on the source, with ``ast``."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_packages(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_the_port_has_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "src/repro_torch/kernels/flash_attention.py" in names
+    assert "src/repro_torch/serving/engine.py" in names
+    assert len(FILES) > 15
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_and_no_repro_imports(path):
+    bad = sorted({p for p in _imported_packages(path) if p in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
