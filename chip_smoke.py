@@ -34,7 +34,27 @@ Phases (each raises on failure; nothing is caught):
      padded batch, the finish reasons, and that each batch launched K1
      once per layer and K2 once per layer and decode step;
   9. time K2, its plain version and SDPA by device time, one decode step
-     and its kernels, and the decoder burst.
+     and its kernels, and the decoder burst;
+ 10. hold K3 (the dequant-fused int8 matmul) and K4 (the tiled matmul)
+     against their plain versions at every (K, N) of both models'
+     projections for M = 1, 32 and 4096 and at ragged shapes, fp32 and
+     bf16, with an all-zero weight column that must give exact zeros;
+ 11. GECToR-base with int8 weights (``quantize_params``) in bf16: the K3
+     forward against the plain-int8 forward, both against the int8 model
+     in fp32, gated by phase 3's factors;
+ 12. Qwen2-0.5B with int8 weights and an int8 KV cache in bf16: prefill
+     and 15 teacher-forced steps, the kernel path (K1, K2, K3) against the
+     plain path, both against the int8 model in fp32, gated as phase 7;
+ 13. serve with ``weight_quant="int8"``: 32 sentences through the encoder
+     engine (tags against direct ``predict_tags`` calls on the engine's
+     tree, 72 K3 launches a batch) and 16 requests through the decoder
+     engine with ``kv_quant="int8"`` too (tokens and finish reasons
+     against direct calls, 144 x 16 K3 launches a batch), and
+     ``metrics()["weight_bytes"]`` beside the float engines';
+ 14. time K3 and K4 at the main shapes by device time beside their
+     bounds, plain versions and ``torch.matmul`` on the weight dequantized
+     beforehand (the yardstick; the port never calls it), then one int8
+     GECToR forward and one int8 Qwen2 decode step beside the float ones.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -71,6 +91,9 @@ NEW_TOKENS = 16
 # their top-1 flips at most TOP1_FLIP_FACTOR x plain's (or 1% of rows).
 LOGIT_ERR_FACTOR = 1.5
 TOP1_FLIP_FACTOR = 2.0
+# K3/K4's main shape in the kernels line: GECToR-base's wq at B=32, bucket
+# 128 (M = 4096 rows, K = N = 768)
+MM_MAIN = (4096, 768, 768)
 
 
 def card() -> str:
@@ -107,19 +130,23 @@ def kernel_rows(prof, n):
 
 def device_ms(fn, iters: int = 20, warmup: int = 3):
     """The card's own time for one call of ``fn``: the summed device time
-    of every kernel it runs, from the profiler (None if it saw none).
+    of every kernel it runs, from the profiler (None if it saw none in
+    two tries).
     Unlike ``cuda_ms`` this leaves out the host's launch overhead."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof, iters)
-    return sum(r[0] for r in rows) if rows else None
+    for _ in range(2):            # the profiler now and then sees no kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof, iters)
+        if rows:
+            return sum(r[0] for r in rows)
+    return None
 
 
 def fmt_ms(t):
@@ -239,9 +266,10 @@ def phase_breakdown(fwd, fwd_plain, name):
 
 
 def to_fp32(tree):
+    """Float leaves to fp32; int8 weights (and their fp32 scales) kept."""
     if isinstance(tree, dict):
         return {k: to_fp32(v) for k, v in tree.items()}
-    return tree.float()
+    return tree.float() if tree.is_floating_point() else tree
 
 
 def sentences(rng, n, lo, hi, vocab):
@@ -390,23 +418,26 @@ def prompt_batch(rng, n, lo, hi, bucket, vocab):
     return prompts, toks, np.array([len(p) for p in prompts], np.int32)
 
 
-def first_logits(cfg, params, toks, lens, caches, plain):
+def first_logits(cfg, params, toks, lens, caches, plain, plain_matmul=False):
     """Prefill (filling ``caches``) and the fp32 logits (B, V) at each
     row's last real position, as the engine takes them."""
     from repro_torch.models import forward
     from repro_torch.models.layers import head_weight, lm_head_apply
     hid = forward(cfg, params, tokens=toks, caches=caches, mode="full",
-                  return_hidden=True, plain_attention=plain)
+                  return_hidden=True, plain_attention=plain,
+                  plain_matmul=plain_matmul)
     last = hid[torch.arange(toks.shape[0], device="cuda"), lens - 1]
     w = head_weight(cfg, params.get("lm_head"), params["embed"])
     return lm_head_apply(cfg, None, last[:, None], w=w)[:, 0], w
 
 
-def phase_qwen2_gates(cfg, params):
-    """Kernel path (K1 prefill, K2 decode) and plain-attention path in
-    bf16 against the fp32 model (plain attention, TF32 off), teacher
-    forced on the fp32 model's greedy tokens; then free-running greedy
-    streams of the two bf16 paths. Returns the readings."""
+def phase_qwen2_gates(cfg, params, *, kv_quant=None, label=""):
+    """Kernel path (K1 prefill, K2 decode, K3 for int8 weights) and plain
+    path (plain attention and plain matmuls) in bf16 against the fp32
+    model (plain, TF32 off), teacher forced on the fp32 model's greedy
+    tokens; then, for the float model, free-running greedy streams of the
+    two bf16 paths. ``kv_quant`` gives every path int8 caches. Returns
+    the readings."""
     from repro_torch.models import decode_segment, forward, make_caches
     rng = np.random.default_rng(7)
     B, bucket = DECODE_MAIN["B"], 128
@@ -421,37 +452,39 @@ def phase_qwen2_gates(cfg, params):
              "fp32": (cfg32, params32, True)}
     state = {}
     with torch.inference_mode():
-        for label, (c, p, plain) in paths.items():
+        for path, (c, p, plain) in paths.items():
             caches = make_caches(c, B, bucket + NEW_TOKENS,
-                                 dtype=torch.float32, device="cuda")
-            logits, w = first_logits(c, p, toks, lens, caches, plain)
-            state[label] = [caches, w, [logits]]
+                                 dtype=torch.float32, kv_quant=kv_quant,
+                                 device="cuda")
+            logits, w = first_logits(c, p, toks, lens, caches, plain, plain)
+            state[path] = [caches, w, [logits]]
         for t in range(NEW_TOKENS - 1):
             tok = state["fp32"][2][-1].argmax(-1)[:, None]
             pos = (lens + t)[:, None]
-            for label, (c, p, plain) in paths.items():
-                caches, w, out = state[label]
+            for path, (c, p, plain) in paths.items():
+                caches, w, out = state[path]
                 out.append(forward(c, p, tokens=tok, positions=pos,
                                    caches=caches, mode="decode",
-                                   plain_attention=plain, head_w=w)[:, 0])
+                                   plain_attention=plain, plain_matmul=plain,
+                                   head_w=w)[:, 0])
         torch.cuda.synchronize()
         ref = torch.stack(state["fp32"][2])               # (T, B, V)
         V = cfg.vocab_size
         readings = {}
-        for label in ("kernels bf16", "plain bf16"):
-            got = torch.stack(state[label][2])
+        for path in ("kernels bf16", "plain bf16"):
+            got = torch.stack(state[path][2])
             if not (torch.isfinite(got[..., :V]).all()
                     and tuple(got.shape) == (NEW_TOKENS, B,
                                              cfg.padded_vocab)):
-                raise AssertionError(f"{label} logits: non-finite or "
+                raise AssertionError(f"{path} logits: non-finite or "
                                      f"misshapen")
             diff = (got[..., :V] - ref[..., :V]).abs()
             flips = int((got.argmax(-1) != ref.argmax(-1)).sum())
-            readings[label] = (diff.max().item(), diff.mean().item(), flips)
-            print(f"Qwen2-0.5B {label:12s} vs fp32 over prefill + "
+            readings[path] = (diff.max().item(), diff.mean().item(), flips)
+            print(f"Qwen2-0.5B{label} {path:12s} vs fp32 over prefill + "
                   f"{NEW_TOKENS - 1} teacher-forced steps x {B} rows: "
-                  f"logits max_abs_err {readings[label][0]:.4e}, mean "
-                  f"{readings[label][1]:.4e}, top-1 flips {flips} of "
+                  f"logits max_abs_err {readings[path][0]:.4e}, mean "
+                  f"{readings[path][1]:.4e}, top-1 flips {flips} of "
                   f"{NEW_TOKENS * B}", flush=True)
         del state, ref
         (k_max, k_mean, k_flips) = readings["kernels bf16"]
@@ -465,6 +498,8 @@ def phase_qwen2_gates(cfg, params):
                 f"attention: max {k_max:.3e} vs {p_max:.3e}, mean "
                 f"{k_mean:.3e} vs {p_mean:.3e} (factor {LOGIT_ERR_FACTOR}),"
                 f" flips {k_flips} vs {p_flips}")
+        if kv_quant is not None:
+            return readings, None
         # free-running greedy streams of the two bf16 paths
         streams = {}
         for label, plain in (("kernels bf16", False), ("plain bf16", True)):
@@ -495,16 +530,17 @@ def no_host_sync(fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def direct_generate(cfg, params, toks, lens, temp, topk, seed):
-    """The engine's decoder computation written out: fp32 caches of
-    bucket + NEW_TOKENS slots, prefill, the first token at each row's last
-    real position, decode_segment for the rest, which must not wait for
-    the device. Returns (B, T) numpy."""
+def direct_generate(cfg, params, toks, lens, temp, topk, seed, kv_quant=None):
+    """The engine's decoder computation written out: fp32 (or, with
+    ``kv_quant``, int8) caches of bucket + NEW_TOKENS slots, prefill, the
+    first token at each row's last real position, decode_segment for the
+    rest, which must not wait for the device. Returns (B, T) numpy."""
     from repro_torch.models import decode_segment, make_caches, sample_logits
     B, bucket = toks.shape
     with torch.inference_mode():
         caches = make_caches(cfg, B, bucket + NEW_TOKENS,
-                             dtype=torch.float32, device="cuda")
+                             dtype=torch.float32, kv_quant=kv_quant,
+                             device="cuda")
         logits, w = first_logits(cfg, params, toks, lens, caches, False)
         first = sample_logits(logits, temperature=temp, top_k=topk,
                               seed=seed, positions=lens)[:, None]
@@ -515,77 +551,91 @@ def direct_generate(cfg, params, toks, lens, temp, topk, seed):
         return torch.cat([first, rest], 1).cpu().numpy()
 
 
-def phase_decoder_engine(cfg, params, fa, da):
-    """48 requests in three waves (buckets 32/64/128) of 16: per wave 8
+def reset_launches(kernels):
+    for fn in kernels:
+        fn.launches = 0
+
+
+def phase_decoder_engine(cfg, params, kernels, *, quant=None,
+                         spans=((8, 32, 32), (33, 64, 64), (65, 120, 128))):
+    """One wave of 16 requests per (shortest, longest prompt, bucket) in
+    ``spans`` (default: 48 requests in buckets 32/64/128): per wave 8
     greedy, 4 sampled (temperature 0.8, top_k 50, distinct seeds), 4
-    greedy with an eos id their stream reaches. Returns (launches, the
-    engine's window, tokens, wall seconds of the burst, batch sizes)."""
+    greedy with an eos id their stream reaches. ``quant="int8"`` serves
+    with int8 weights and an int8 KV cache; the direct calls then run on
+    the engine's quantized tree. ``kernels`` are K1, K2, K3 and K4's
+    wrappers. Returns (launches of K1/K2/K3/K4, the engine's window,
+    tokens, wall seconds of the burst, batch sizes, weight bytes)."""
     from repro_torch.serving import EngineConfig, ServingEngine
     from repro_torch.serving.api import SamplingParams
-    rng = np.random.default_rng(11)
-    waves = []
-    for w, (lo, hi, bucket) in enumerate(((8, 32, 32), (33, 64, 64),
-                                          (65, 120, 128))):
-        prompts, toks, lens = prompt_batch(rng, 16, lo, hi, bucket,
-                                           cfg.vocab_size)
-        temp = np.zeros(16, np.float32)
-        topk = np.zeros(16, np.int32)
-        seed = np.zeros(16, np.int32)
-        kinds = ["greedy", "greedy", "sampled", "eos"] * 4
-        for i, kind in enumerate(kinds):
-            if kind == "sampled":
-                temp[i], topk[i], seed[i] = 0.8, 50, 100 * w + i
-        gen = direct_generate(
-            cfg, params, torch.from_numpy(toks).cuda(),
-            torch.from_numpy(lens).cuda(), torch.from_numpy(temp).cuda(),
-            torch.from_numpy(topk).cuda(), torch.from_numpy(seed).cuda())
-        sampling, want = [], []
-        for i, kind in enumerate(kinds):
-            row = gen[i]
-            if kind == "eos":
-                eos = int(row[8])
-                n = int(np.where(row == eos)[0][0]) + 1
-                sampling.append(SamplingParams(eos_id=eos))
-                want.append((row[:n], "eos"))
-            else:
-                sampling.append(SamplingParams(
-                    temperature=float(temp[i]), top_k=int(topk[i]) or None,
-                    seed=int(seed[i])))
-                want.append((row, "length"))
-        waves.append((prompts, sampling, want))
     ec = EngineConfig(mode="decoder", continuous=False, use_cache_pool=False,
                       max_batch=16, batch_window_ms=200.0,
-                      pad_buckets=(32, 64, 128), max_new_tokens=NEW_TOKENS)
+                      pad_buckets=tuple(b for _, _, b in spans),
+                      max_new_tokens=NEW_TOKENS, weight_quant=quant,
+                      kv_quant=quant)
     eng = ServingEngine(cfg, params, ec, device="cuda")
     try:
-        eng.warmup(batch_sizes=[16], buckets=(32, 64, 128))
+        rng = np.random.default_rng(11)
+        waves = []
+        for w, (lo, hi, bucket) in enumerate(spans):
+            prompts, toks, lens = prompt_batch(rng, 16, lo, hi, bucket,
+                                               cfg.vocab_size)
+            temp = np.zeros(16, np.float32)
+            topk = np.zeros(16, np.int32)
+            seed = np.zeros(16, np.int32)
+            kinds = ["greedy", "greedy", "sampled", "eos"] * 4
+            for i, kind in enumerate(kinds):
+                if kind == "sampled":
+                    temp[i], topk[i], seed[i] = 0.8, 50, 100 * w + i
+            gen = direct_generate(
+                cfg, eng.params, torch.from_numpy(toks).cuda(),
+                torch.from_numpy(lens).cuda(), torch.from_numpy(temp).cuda(),
+                torch.from_numpy(topk).cuda(), torch.from_numpy(seed).cuda(),
+                kv_quant=quant)
+            sampling, want = [], []
+            for i, kind in enumerate(kinds):
+                row = gen[i]
+                if kind == "eos":
+                    eos = int(row[8])
+                    n = int(np.where(row == eos)[0][0]) + 1
+                    sampling.append(SamplingParams(eos_id=eos))
+                    want.append((row[:n], "eos"))
+                else:
+                    sampling.append(SamplingParams(
+                        temperature=float(temp[i]),
+                        top_k=int(topk[i]) or None, seed=int(seed[i])))
+                    want.append((row, "length"))
+            waves.append((prompts, sampling, want))
+        eng.warmup(batch_sizes=[16], buckets=ec.pad_buckets)
         eng.discard_samples()
-        fa.flash_attention.launches = 0
-        da.decode_attention.launches = 0
+        reset_launches(kernels)
         t0 = time.perf_counter()
         results = []
         for prompts, sampling, _ in waves:   # one burst per bucket
             handles = [eng.generate(p, s) for p, s in zip(prompts, sampling)]
             results.append([h.result(timeout=600) for h in handles])
         wall = time.perf_counter() - t0
-        launches = (fa.flash_attention.launches,
-                    da.decode_attention.launches)
+        launches = tuple(fn.launches for fn in kernels)
         served = eng.window()
         batch_sizes = list(eng.batch_sizes)   # the worker is idle now
+        weight_bytes = eng.metrics()["weight_bytes"]
     finally:
         eng.close()
     n_batches = len(batch_sizes)
-    print(f"decoder engine: {sum(map(len, results))} requests in "
+    tag = f" ({quant} weights and KV)" if quant else ""
+    print(f"decoder engine{tag}: {sum(map(len, results))} requests in "
           f"{n_batches} batches {batch_sizes}; K1 launches {launches[0]}, "
-          f"K2 launches {launches[1]}", flush=True)
-    if batch_sizes != [16, 16, 16]:
+          f"K2 launches {launches[1]}, K3/K4 launches {launches[2:]}",
+          flush=True)
+    if batch_sizes != [16] * len(spans):
         raise AssertionError(f"waves were not served as one batch each: "
                              f"{batch_sizes}")
     want_k1 = cfg.n_layers * n_batches
     want_k2 = cfg.n_layers * (NEW_TOKENS - 1) * n_batches
-    if launches != (want_k1, want_k2):
-        raise AssertionError(f"launches K1/K2 {launches} != "
-                             f"({want_k1}, {want_k2})")
+    want_k3 = (6 * cfg.n_layers * NEW_TOKENS * n_batches if quant else 0)
+    if launches != (want_k1, want_k2, want_k3, 0):
+        raise AssertionError(f"launches K1/K2/K3/K4 {launches} != "
+                             f"({want_k1}, {want_k2}, {want_k3}, 0)")
     n_tok = 0
     for (_, _, want), got in zip(waves, results):
         for (w_tokens, w_reason), r in zip(want, got):
@@ -595,11 +645,12 @@ def phase_decoder_engine(cfg, params, fa, da):
                     f"engine result {r.tokens} ({r.finish_reason}) != "
                     f"direct {w_tokens} ({w_reason})")
             n_tok += len(r.tokens)
-    print(f"decoder engine tokens and finish reasons equal direct prefill + "
-          f"decode_segment calls on the same batches: 48 of 48 ({n_tok} "
-          f"tokens); decode_segment ran in sync debug mode 'error' (no "
-          f"host sync)", flush=True)
-    return launches, served, n_tok, wall, batch_sizes
+    n_req = 16 * len(spans)
+    print(f"decoder engine{tag} tokens and finish reasons equal direct "
+          f"prefill + decode_segment calls on the same batches: {n_req} of "
+          f"{n_req} ({n_tok} tokens); decode_segment ran in sync debug mode "
+          f"'error' (no host sync)", flush=True)
+    return launches, served, n_tok, wall, batch_sizes, weight_bytes
 
 
 def phase_decode_timings(da, name):
@@ -645,11 +696,14 @@ def phase_decode_timings(da, name):
     return main
 
 
-def phase_decode_step(cfg, params, name):
+def phase_decode_step(cfg, params, name, *, kv_quant=None,
+                      modes=(False, True), label=""):
     """One decode step of Qwen2-0.5B at B=32 bucket 128 (after a prefill):
     the forward in decode mode plus token selection, greedy and sampled
-    (temperature 0.8, top_k 50). Wall time by the host clock around
-    synchronized steps, device time and kernels by the profiler."""
+    (temperature 0.8, top_k 50; ``modes`` says which). Wall time by the
+    host clock around synchronized steps, device time and kernels by the
+    profiler. ``params`` may be quantized; ``kv_quant`` gives int8
+    caches. Returns {mode: (wall ms, device ms)}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import forward, make_caches, sample_logits
@@ -662,7 +716,8 @@ def phase_decode_step(cfg, params, name):
     seed = torch.arange(B, dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         caches = make_caches(cfg, B, bucket + NEW_TOKENS,
-                             dtype=torch.float32, device="cuda")
+                             dtype=torch.float32, kv_quant=kv_quant,
+                             device="cuda")
         logits, w = first_logits(cfg, params, torch.from_numpy(toks).cuda(),
                                  lens_t, caches, False)
         tok = logits.argmax(-1).to(torch.int32)[:, None]
@@ -677,8 +732,8 @@ def phase_decode_step(cfg, params, name):
             return sample_logits(lg)
 
         out = {}
-        for sampled in (False, True):
-            label = "sampled" if sampled else "greedy"
+        for sampled in modes:
+            mode = "sampled" if sampled else "greedy"
             for _ in range(3):
                 step(sampled)
             torch.cuda.synchronize()
@@ -695,9 +750,10 @@ def phase_decode_step(cfg, params, name):
                 torch.cuda.synchronize()
             rows = kernel_rows(prof, 5)
             busy = sum(r[0] for r in rows) if rows else None
-            out[label] = (wall, busy)
-            print(f"decode step Qwen2-0.5B B={B} L={bucket + NEW_TOKENS} "
-                  f"bf16, {label}: wall {wall:.3f} ms (host clock, "
+            out[mode] = (wall, busy)
+            print(f"decode step Qwen2-0.5B{label} B={B} "
+                  f"L={bucket + NEW_TOKENS} bf16, {mode}: wall {wall:.3f} "
+                  f"ms (host clock, "
                   f"synchronized), device {fmt_ms(busy)}"
                   + ("" if busy is None else
                      f", device idle {max(0.0, 1 - busy / wall):.1%}")
@@ -707,6 +763,263 @@ def phase_decode_step(cfg, params, name):
                       f"{key[:90]}")
     return out
 
+
+
+# --------------------------------------------------------- int8 serving
+def proj_shapes(cfg):
+    """(K, N) -> projection names of one layer's int8 matmuls, in
+    ``qeinsum``'s (M, K) x (K, N) view."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    q, kv, f = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff
+    mlp = [("w_in", d, 2 * f)] if cfg.gated_mlp else [("w_up", d, f)]
+    shapes = {}
+    for name, K, N in [("wq", d, q), ("wk", d, kv), ("wv", d, kv),
+                       ("wo", q, d), *mlp, ("w_down", f, d)]:
+        shapes.setdefault((K, N), []).append(name)
+    return {kn: "/".join(names) for kn, names in shapes.items()}
+
+
+def mm_bound_ms(M, K, N, x_item, w_item, scaled):
+    """Least time for one (M, K) x (K, N) product: x, the weight (and
+    the fp32 scales) read once and the output written once in x's type,
+    over HBM; or 2MKN operations at the bf16 tensor-core peak (the
+    products are bf16 x bf16 for an int8 weight too)."""
+    nbytes = M * K * x_item + K * N * w_item + (4 * N if scaled else 0) + \
+        M * N * x_item
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * M * K * N / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_inputs(gen, M, K, N, dtype):
+    """x (M, K) in ``dtype``; qw (K, N) int8 and fp32 scales that give
+    outputs of order one; column N // 3 of qw all zero."""
+    x = randn(gen, M, K, dtype=dtype)
+    qw = torch.randint(-127, 128, (K, N), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    qw[:, N // 3] = 0
+    scale = (torch.rand(N, device="cuda", generator=gen) + 0.5) / \
+        (127.0 * K ** 0.5)
+    return x, qw, scale
+
+
+def phase_matmul_parity(i8, matmul_tile, cfgs):
+    """K3 and K4 against their plain versions at every (K, N) of the
+    main paths (GECToR-base's and Qwen2-0.5B's projections) for M = 1,
+    32 and 4096, and at ragged shapes, in fp32 (TF32 off, within 1e-4 of
+    the output's largest magnitude: another order of the fp32 sum) and
+    bf16 (within 2e-2 of it: one bf16 rounding of the output); the
+    all-zero weight column must give exact zeros. Returns (K3's and K4's
+    bf16 error at MM_MAIN, settings checked)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    kn = {}
+    for c in cfgs:
+        for (K, N), names in proj_shapes(c).items():
+            kn[(K, N)] = f"{c.name} {names}"
+    shapes = [(M, K, N, label) for (K, N), label in kn.items()
+              for M in (1, 32, 4096)]
+    shapes += [(33, 72, 40, "ragged"), (5, 300, 17, "ragged"),
+               (130, 896, 129, "ragged")]
+    errs, checked = {}, 0
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for M, K, N, label in shapes:
+            x, qw, scale = int8_inputs(gen, M, K, N, dtype)
+            tile = matmul_tile(M, N)
+            w = (qw.float() * scale).to(dtype)
+            out3 = i8.int8_matmul(x, qw, scale, tile=tile)
+            out4 = i8.cache_matmul(x, w, tile=tile)
+            torch.cuda.synchronize()
+            for kname, out, ref in (
+                    ("K3", out3, i8.int8_matmul_plain(x.float(), qw, scale)),
+                    ("K4", out4, i8.cache_matmul_plain(x.float(), w))):
+                err = (out.float() - ref).abs().max().item()
+                mag = ref.abs().max().item()
+                zeros = kname == "K4" or bool((out[:, N // 3] == 0).all())
+                ok = err <= tol * mag and zeros and out.dtype == dtype
+                print(f"{kname} M={M:<4d} K={K:<4d} N={N:<5d} {label:28s} "
+                      f"tile {tile} {str(dtype)[6:]:8s} max_abs_err "
+                      f"{err:.3e} of max {mag:.3e} (tol {tol} relative)"
+                      + ("" if kname == "K4" else
+                         f", zero column {'exact' if zeros else 'WRONG'}"),
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"{kname} disagrees with its plain "
+                                         f"version: M={M} K={K} N={N} "
+                                         f"{dtype}")
+                errs[(kname, M, K, N, dtype)] = err
+                checked += 1
+    return (errs[("K3", *MM_MAIN, torch.bfloat16)],
+            errs[("K4", *MM_MAIN, torch.bfloat16)], checked)
+
+
+def phase_gector_int8(cfg, params, tt, mt, tags_float):
+    """GECToR-base with int8 weights in bf16: the K3 forward against the
+    plain-int8 forward (both with K1), both against the same quantized
+    model in fp32 with plain matmuls; the K3 path may be no worse than
+    the plain path by phase 3's factors. How often the int8 tags agree
+    with the float model's is reported, not gated (random weights)."""
+    from repro_torch.core.gector import tag_head
+    from repro_torch.models import forward
+    from repro_torch.quant import quantize_params
+    qp = quantize_params(params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    qp32 = to_fp32(qp)
+    with torch.inference_mode():
+        hid = forward(cfg, qp["encoder"], tokens=tt, causal=False,
+                      return_hidden=True)
+        hid_plain = forward(cfg, qp["encoder"], tokens=tt, causal=False,
+                            return_hidden=True, plain_matmul=True)
+        hid32 = forward(cfg32, qp32["encoder"], tokens=tt, causal=False,
+                        return_hidden=True, plain_matmul=True)
+        tags = {"K3 bf16": tag_head(qp, hid, mt),
+                "plain bf16": tag_head(qp, hid_plain, mt)}
+        tags32 = tag_head(qp32, hid32, mt)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(hid.float()).all()
+            and hid.shape == hid_plain.shape == (*tt.shape, cfg.d_model)):
+        raise AssertionError("int8 GECToR forward: non-finite or misshapen")
+    vs32 = {}
+    for label, h in (("K3 bf16", hid), ("plain bf16", hid_plain)):
+        vs32[label] = ((h.float() - hid32).abs().max().item(),
+                       (tags[label] == tags32)[mt].float().mean().item())
+        print(f"GECToR-base int8 weights {label:10s} vs the int8 model in "
+              f"fp32 (plain matmuls): hidden max_abs_err "
+              f"{vs32[label][0]:.3e}, tag agreement {vs32[label][1]:.4f}",
+              flush=True)
+    (k_err, k_agree), (p_err, p_agree) = vs32["K3 bf16"], vs32["plain bf16"]
+    if k_err > HIDDEN_ERR_FACTOR * p_err or \
+            1 - k_agree > TAG_FLIP_FACTOR * (1 - p_agree):
+        raise AssertionError(
+            f"K3 bf16 strays further from fp32 than the plain int8 path: "
+            f"hidden {k_err:.3e} > {HIDDEN_ERR_FACTOR} x {p_err:.3e} or tag "
+            f"flips {1 - k_agree:.4f} > {TAG_FLIP_FACTOR} x "
+            f"{1 - p_agree:.4f}")
+    agree = (tags["K3 bf16"] == tags_float)[mt].float().mean().item()
+    print(f"int8 (K3) tags agree with the float bf16 model's on "
+          f"{agree:.4f} of {int(mt.sum())} real tokens (random weights; "
+          f"not gated)", flush=True)
+    return qp
+
+
+def phase_encoder_int8_engine(cfg, params, kernels, rng):
+    """32 sentences of 65-120 tokens through ``ServingEngine(mode=
+    "encoder", weight_quant="int8")`` with the tag head: K1 once and K3
+    six times per layer and batch, and the tags equal direct
+    ``predict_tags`` calls on the engine's quantized tree. Returns
+    (launches of K1/K2/K3/K4, batch sizes, weight bytes)."""
+    from repro_torch.core.gector import predict_tags, tag_head
+    from repro_torch.quant import params_bytes
+    from repro_torch.serving import EngineConfig, ServingEngine
+    sents = sentences(rng, 32, 65, 120, cfg.vocab_size)
+    eng = ServingEngine(cfg, params, EngineConfig(
+        mode="encoder", weight_quant="int8", batch_window_ms=200.0,
+        pad_buckets=(128,)), head_fn=tag_head, device="cuda")
+    try:
+        eng.warmup(batch_sizes=[32])
+        eng.discard_samples()
+        reset_launches(kernels)
+        results = [f.result(timeout=300) for f in
+                   [eng.submit(s) for s in sents]]
+        launches = tuple(fn.launches for fn in kernels)
+        batch_sizes = list(eng.batch_sizes)   # the worker is idle now
+        weight_bytes = eng.metrics()["weight_bytes"]
+        qparams = eng.params
+        toks, mask = padded(sents, 128)
+        want = predict_tags(cfg, qparams, toks, mask)
+    finally:
+        eng.close()
+    n = len(batch_sizes)
+    print(f"encoder engine (int8 weights): {len(results)} requests in {n} "
+          f"batches {batch_sizes}; K1 launches {launches[0]}, K3 launches "
+          f"{launches[2]}", flush=True)
+    if launches[:3] != (cfg.n_layers * n, 0, 6 * cfg.n_layers * n):
+        raise AssertionError(f"launches K1/K2/K3 {launches[:3]} for {n} "
+                             f"batches of {cfg.n_layers} layers")
+    match = sum(int((r.numpy()[:len(s)] == want[i, :len(s)]).sum())
+                for i, (s, r) in enumerate(zip(sents, results)))
+    total = sum(map(len, sents))
+    print(f"int8 engine tags vs direct predict_tags on the engine's tree: "
+          f"{match}/{total} = {match / total:.4f}", flush=True)
+    if match / total < TAG_AGREEMENT:
+        raise AssertionError("int8 engine results disagree with predict_tags")
+    if weight_bytes != params_bytes(qparams):
+        raise AssertionError(f"weight_bytes {weight_bytes} != "
+                             f"{params_bytes(qparams)}")
+    return launches, batch_sizes, weight_bytes
+
+
+def phase_matmul_timings(i8, matmul_tile, shapes, name):
+    """K3 and K4 by device time at the main paths' shapes, bf16 x, beside
+    the bound, the plain version and one PyTorch call as the yardstick:
+    ``torch.matmul`` of x with the weight dequantized beforehand to bf16
+    (the float path's GEMM; the port never calls it) and, where this
+    PyTorch has it on CUDA, ``torch._weight_int8pack_mm`` (its scales are
+    bf16). Returns {(M, K, N): (K3 row, K4 row)}, a row (ms, plain ms,
+    bound ms, bound by, library ms); a kernel's ms is its event time where
+    the profiler saw no kernel."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    rows = {}
+    for M, K, N, label in shapes:
+        x, qw, scale = int8_inputs(gen, M, K, N, torch.bfloat16)
+        tile = matmul_tile(M, N)
+        w = (qw.float() * scale).to(torch.bfloat16)
+        def k3():
+            return i8.int8_matmul(x, qw, scale, tile=tile)
+
+        def k4():
+            return i8.cache_matmul(x, w, tile=tile)
+        t3, t4 = device_ms(k3), device_ms(k4)
+        t3p = device_ms(lambda: i8.int8_matmul_plain(x, qw, scale), iters=5)
+        t4p = device_ms(lambda: i8.cache_matmul_plain(x, w), iters=5)
+        t_lib = device_ms(lambda: torch.matmul(x, w))
+        pack = "not in this PyTorch"
+        if hasattr(torch, "_weight_int8pack_mm"):
+            qt, sb = qw.t().contiguous(), scale.to(torch.bfloat16)
+            try:   # a yardstick only: the port never calls it
+                torch._weight_int8pack_mm(x, qt, sb)
+                pack = fmt_ms(device_ms(
+                    lambda: torch._weight_int8pack_mm(x, qt, sb)))
+            except (RuntimeError, NotImplementedError) as e:
+                pack = f"not on CUDA ({str(e)[:60]!r})"
+        b3, by3 = mm_bound_ms(M, K, N, 2, 1, True)
+        b4, by4 = mm_bound_ms(M, K, N, 2, 2, False)
+        print(f"timing M={M:<4d} K={K:<4d} N={N:<5d} {label:26s} tile "
+              f"{tile}, device time: K3 {fmt_ms(t3)} (bound {b3:.5f} ms "
+              f"{by3}, plain {fmt_ms(t3p)}), K4 {fmt_ms(t4)} (bound "
+              f"{b4:.5f} ms {by4}, plain {fmt_ms(t4p)}), torch.matmul bf16 "
+              f"{fmt_ms(t_lib)}, _weight_int8pack_mm {pack} [{name}]",
+              flush=True)
+        # where the profiler saw no kernel, the event time stands in
+        rows[(M, K, N)] = (
+            (t3 if t3 is not None else cuda_ms(k3), t3p, b3, by3, t_lib),
+            (t4 if t4 is not None else cuda_ms(k4), t4p, b4, by4, t_lib))
+    return rows
+
+
+def forward_profile(fn, label, name, n=5):
+    """Wall time of ``fn`` (CUDA events around back-to-back calls), its
+    kernel time and device idle share by the profiler, and its costliest
+    kernels. Returns (wall ms, kernel ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        wall = cuda_ms(fn, iters=10)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    rows = kernel_rows(prof, n)
+    busy = sum(r[0] for r in rows) if rows else None
+    print(f"{label}: wall {wall:.4f} ms (events), kernels {fmt_ms(busy)}"
+          + ("" if busy is None else
+             f", device idle {max(0.0, 1 - busy / wall):.1%}")
+          + f" [{name}]", flush=True)
+    for ms, calls, key in sorted(rows, reverse=True)[:8]:
+        print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{calls:<4d} {key[:90]}")
+    return wall, busy
 
 
 def main() -> int:
@@ -725,8 +1038,10 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ops import attn_block_sizes
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.ops import attn_block_sizes, matmul_tile
     from repro_torch.models import forward
+    from repro_torch.quant import params_bytes, quantize_params
     from repro_torch.serving import EngineConfig, ServingEngine
 
     t_start = time.perf_counter()
@@ -809,8 +1124,9 @@ def main() -> int:
         waves = [sentences(rng, 22, 8, 32, cfg.vocab_size),
                  sentences(rng, 21, 33, 64, cfg.vocab_size),
                  sentences(rng, 21, 65, 120, cfg.vocab_size)]
-        fa.flash_attention.launches = 0
-        da.decode_attention.launches = 0
+        kernels = (fa.flash_attention, da.decode_attention,
+                   i8.int8_matmul, i8.cache_matmul)
+        reset_launches(kernels)
         results, sent = [], []
         for wave in waves:                 # one burst per bucket
             futs = [eng.submit(s) for s in wave]
@@ -818,16 +1134,20 @@ def main() -> int:
             sent += wave
         launches = fa.flash_attention.launches
         enc_k2_launches = da.decode_attention.launches
+        enc_mm_launches = (i8.int8_matmul.launches, i8.cache_matmul.launches)
         served = eng.window()
         batch_sizes = list(eng.batch_sizes)   # the worker is idle now
     finally:
         eng.close()
     n_batches = len(batch_sizes)
     print(f"served {len(results)} requests in {n_batches} batches "
-          f"{batch_sizes}; K1 launches {launches}", flush=True)
+          f"{batch_sizes}; K1 launches {launches}, K3/K4 launches "
+          f"{enc_mm_launches}", flush=True)
     if launches != cfg.n_layers * n_batches or launches == 0:
         raise AssertionError(f"K1 launched {launches} times for "
                              f"{n_batches} batches of {cfg.n_layers} layers")
+    if enc_mm_launches != (0, 0):
+        raise AssertionError("the float encoder launched K3 or K4")
     match = total = 0
     for s, row in zip(sent, results):
         bucket = row.shape[0]
@@ -878,6 +1198,7 @@ def main() -> int:
           f"{served['latency_p50_s'] * 1e3:.3f} ms, p95 "
           f"{served['latency_p95_s'] * 1e3:.3f} ms, mean batch "
           f"{served['batch_size_mean']:.2f} [{name}]", flush=True)
+    float_bytes = params_bytes(params)
     del params
 
     # ---- 6. K2 against its plain version
@@ -889,8 +1210,8 @@ def main() -> int:
     phase_qwen2_gates(qcfg, qparams)
 
     # ---- 8. the decoder engine, batch at a time: the port's second path
-    dec_launches, dec_served, n_tok, wall, dec_batches = \
-        phase_decoder_engine(qcfg, qparams, fa, da)
+    dec_launches, dec_served, n_tok, wall, dec_batches, qfloat_bytes = \
+        phase_decoder_engine(qcfg, qparams, kernels)
 
     # ---- 9. timings
     k2_times = phase_decode_timings(da, name)
@@ -901,10 +1222,67 @@ def main() -> int:
           f"{dec_served['latency_p50_s'] * 1e3:.3f} ms, p95 "
           f"{dec_served['latency_p95_s'] * 1e3:.3f} ms, mean decode serve "
           f"{dec_served['decode_mean_s'] * 1e3:.3f} ms [{name}]", flush=True)
+
+    # ---- 10. K3 and K4 against their plain versions
+    k3_err, k4_err, mm_checked = phase_matmul_parity(i8, matmul_tile,
+                                                     (cfg, qcfg))
+
+    # ---- 11. GECToR-base, full width, bf16, int8 weights: K3 vs plain
+    params = init_gector(cfg, vocab, 0, device="cuda")
+    gq = phase_gector_int8(cfg, params, tt, mt, tags)
+
+    # ---- 12. Qwen2-0.5B, full width, bf16, int8 weights and KV
+    qq = quantize_params(qparams)
+    phase_qwen2_gates(qcfg, qq, kv_quant="int8", label=" int8 W+KV")
+
+    # ---- 13. serve with int8 weights (and the int8 KV cache)
+    enc8_launches, _, enc8_bytes = phase_encoder_int8_engine(
+        cfg, params, kernels, rng)
+    dec8_launches, dec8_served, n_tok8, wall8, _, dec8_bytes = \
+        phase_decoder_engine(qcfg, qparams, kernels, quant="int8",
+                             spans=((65, 120, 128),))
+    print(f"weight_bytes: GECToR-base float {float_bytes:,} -> int8 "
+          f"{enc8_bytes:,} ({float_bytes / enc8_bytes:.2f}x); Qwen2-0.5B "
+          f"float {qfloat_bytes:,} -> int8 {dec8_bytes:,} "
+          f"({qfloat_bytes / dec8_bytes:.2f}x); int8 decoder burst: 16 "
+          f"requests, {n_tok8} tokens in {wall8:.3f} s, request p50 "
+          f"{dec8_served['latency_p50_s'] * 1e3:.3f} ms [{name}]",
+          flush=True)
+
+    # ---- 14. timings: K3/K4 at the main shapes, int8 forward and step
+    mm_shapes = [(4096, K, N, f"GECToR {names}")
+                 for (K, N), names in proj_shapes(cfg).items()]
+    for M, what in ((DECODE_MAIN["B"], "decode"), (4096, "prefill")):
+        mm_shapes += [(M, K, N, f"Qwen2 {what} {names}")
+                      for (K, N), names in proj_shapes(qcfg).items()]
+    mm_rows = phase_matmul_timings(i8, matmul_tile, mm_shapes, name)
+    step_k3 = sum(mm_rows[(DECODE_MAIN["B"], K, N)][0][0] * len(n.split("/"))
+                  for (K, N), n in proj_shapes(qcfg).items()) * qcfg.n_layers
+    step_bound = sum(mm_rows[(DECODE_MAIN["B"], K, N)][0][2]
+                     * len(n.split("/"))
+                     for (K, N), n in proj_shapes(qcfg).items()) * \
+        qcfg.n_layers
+    print(f"K3 per Qwen2-0.5B decode step (B=32, {6 * qcfg.n_layers} "
+          f"launches, alone, L2 warm): {step_k3:.4f} ms against a bound of "
+          f"{step_bound:.4f} ms [{name}]", flush=True)
+    forward_profile(lambda: forward(cfg, params["encoder"], tokens=tt,
+                                    causal=False, return_hidden=True),
+                    "GECToR-base forward B=32 bucket 128 bf16, float", name)
+    forward_profile(lambda: forward(cfg, gq["encoder"], tokens=tt,
+                                    causal=False, return_hidden=True),
+                    "GECToR-base forward B=32 bucket 128 bf16, int8 K3",
+                    name)
+    phase_decode_step(qcfg, qparams, name, modes=(False,), label=" float")
+    phase_decode_step(qcfg, qq, name, kv_quant="int8", modes=(False,),
+                      label=" int8 W+KV")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
     k2_k, k2_p, k2_s, k2_bound, k2_by = k2_times
+    k3_row, k4_row = mm_rows[MM_MAIN]
+    paths = {"encoder": launches, "decoder": dec_launches[0],
+             "encoder int8": enc8_launches[0],
+             "decoder int8": dec8_launches[0]}
     print(name)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -913,9 +1291,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": main_err, "ms": t_k,
         "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
         "library_ms": t_s, "check": "ok", "settings_checked": checked,
-        "visits_checked": True,
-        "launches_by_path": {"encoder": launches,
-                             "decoder": dec_launches[0]}}, {
+        "visits_checked": True, "launches_by_path": paths}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:81",
@@ -924,7 +1300,33 @@ def main() -> int:
         "library_ms": k2_s, "check": "ok", "settings_checked": k2_checked,
         "visits_checked": True,
         "launches_by_path": {"encoder": enc_k2_launches,
-                             "decoder": dec_launches[1]}}]}))
+                             "decoder": dec_launches[1],
+                             "encoder int8": enc8_launches[1],
+                             "decoder int8": dec8_launches[1]}}, {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:50",
+        "launches": enc8_launches[2] + dec8_launches[2],
+        "max_abs_err": k3_err, "ms": k3_row[0], "plain_ms": k3_row[1],
+        "bound_ms": k3_row[2], "bound_by": k3_row[3],
+        "library_ms": k3_row[4], "check": "ok",
+        "settings_checked": mm_checked // 2,
+        "launches_by_path": {"encoder": enc_mm_launches[0],
+                             "decoder": dec_launches[2],
+                             "encoder int8": enc8_launches[2],
+                             "decoder int8": dec8_launches[2]}}, {
+        "name": "cache_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/cache_matmul.py:43",
+        "launches": enc8_launches[3] + dec8_launches[3],
+        "max_abs_err": k4_err,
+        "ms": k4_row[0], "plain_ms": k4_row[1], "bound_ms": k4_row[2],
+        "bound_by": k4_row[3], "library_ms": k4_row[4], "check": "ok",
+        "settings_checked": mm_checked // 2,
+        "launches_by_path": {"encoder": enc_mm_launches[1],
+                             "decoder": dec_launches[3],
+                             "encoder int8": enc8_launches[3],
+                             "decoder int8": dec8_launches[3]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

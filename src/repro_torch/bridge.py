@@ -9,7 +9,9 @@ transposes nothing: blocks stay stacked over a leading period axis under
 ``label_head``) bridges the same way, and so does a Qwen2 tree as it is:
 QKV biases ``bq``/``bk``/``bv`` as (h, hd), the gated MLP's fused gate|up
 ``w_in`` as (d, 2, d_ff), and no ``lm_head`` (the head is the tied fp32
-embedding table). The caller converts the JAX arrays
+embedding table). A tree from the JAX ``quantize_params`` bridges as it
+is too: each quantized leaf stays a ``{"qw": int8, "scale": fp32}`` dict,
+which the port's ``qeinsum`` reads. The caller converts the JAX arrays
 to numpy (``jax.tree.map(np.asarray, params)``); nothing here imports jax.
 """
 from __future__ import annotations

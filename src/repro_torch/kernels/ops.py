@@ -1,17 +1,20 @@
 """Public wrappers around the kernels: tile-size choice and dispatch.
 
-``mha_prefill`` and ``gqa_decode`` are the ports of
-``repro/kernels/ops.py:mha_prefill`` and ``:gqa_decode``. The TPU wrappers
-transpose q/k/v to (B*H, S, D), repeat kv_pos per kv head and pad to whole
-tiles before the kernel; the Hopper kernels read (B, S, H, D) and
-(B, L) through strides and mask the ragged edges themselves, so here the
-wrappers only pick the tiles.
+``mha_prefill``, ``gqa_decode``, ``matmul_q8`` and ``matmul`` are the
+ports of the functions of those names in ``repro/kernels/ops.py``. The
+TPU wrappers transpose q/k/v to (B*H, S, D), repeat kv_pos per kv head and
+pad to whole tiles before the kernel; the Hopper kernels read (B, S, H, D),
+(B, L) and (M, K) through strides and mask the ragged edges themselves,
+so here the wrappers only pick the tiles.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import BLOCK_K as DECODE_BLOCK_K
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import BLOCK_K, flash_attention
+from repro_torch.kernels.int8_matmul import (TILE_LARGE, TILE_SMALL,
+                                             cache_matmul, int8_matmul,
+                                             int8_matmul_plain)
 
 H100_SMS = 132
 
@@ -59,3 +62,39 @@ def gqa_decode(q, k, v, q_pos, kv_pos, *, window=None, softcap=None):
     ``attn_block_sizes("decode", ...)``)."""
     return decode_attention(q, k, v, q_pos, kv_pos, window=window,
                             softcap=softcap)
+
+
+def matmul_tile(M: int, N: int):
+    """(bm, bn, bk) for K3 and K4 on an H100: the 128 x 128 tile when its
+    grid fills the 132 SMs, else the 32 x 32 tile with a deeper K step,
+    which gives small-M products (a decode step's M is the batch) four
+    times the blocks and wastes fewer padded rows. Not yet tuned by
+    measurement."""
+    bm, bn, _ = TILE_LARGE
+    return TILE_LARGE if -(-M // bm) * -(-N // bn) >= H100_SMS \
+        else TILE_SMALL
+
+
+def matmul(x, w):
+    """Tiled matmul (K4). x: (..., K); w: (K, N) of x's type ->
+    (..., N) in x's type, fp32 accumulation. No model calls it, in either
+    package."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    out = cache_matmul(x2, w, tile=matmul_tile(x2.shape[0], w.shape[1]))
+    return out.reshape(*lead, w.shape[1])
+
+
+def matmul_q8(x, qw, scale, *, plain: bool = False):
+    """Dequant-fused matmul (K3): x (M, K) float @ qw (K, N) int8 with
+    (N,) per-output-channel scales applied at the fp32 accumulator ->
+    (M, N) fp32, the kernel's output in x's type upcast (exactly). No
+    float copy of the weights is written. ``plain`` runs the plain
+    version on any device: the reference path the card check holds K3
+    against, as ``plain_attention`` is for K1/K2. JAX's ``"xla"``
+    implementation (``set_quant_matmul_impl``) has no counterpart on the
+    card: a CUDA tensor launches K3 or raises."""
+    if plain:
+        return int8_matmul_plain(x, qw, scale).float()
+    return int8_matmul(x, qw, scale,
+                       tile=matmul_tile(x.shape[0], qw.shape[1])).float()

@@ -7,11 +7,14 @@ attention goes through ``ops.mha_prefill`` (K1) and single-step decode
 through ``ops.gqa_decode`` (K2): the CUDA kernels on a CUDA tensor, their
 plain versions on a CPU one. ``naive_attention`` is the plain path the JAX
 models run, kept as the model-level reference (``plain_attention=True``).
+The projections go through ``qeinsum``: ``torch.einsum`` for a float
+weight, K3 for an int8 leaf (``plain_matmul=True``: its plain version).
 
 Caches are dicts of tensors, ``k``/``v`` (B, L, Hkv, hd), ``pos`` (B, L)
 int32 absolute positions (-1 = empty slot) and ``len`` (B,) int32, as in
-JAX. Where JAX returns new arrays, the port writes into the cache tensors
-in place and returns the same dict.
+JAX; an int8 cache adds the fp32 scale planes ``k_scale``/``v_scale``
+(B, L, Hkv) (``quant/kv.py``). Where JAX returns new arrays, the port
+writes into the cache tensors in place and returns the same dict.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rope_angles, rotate
+from repro_torch.quant.kv import dequantize_kv, quantize_kv
+from repro_torch.quant.weights import qeinsum
 
 NEG_INF = -1e30
 
@@ -40,7 +45,7 @@ def attn_init(cfg, gen, d_model=None):
     return p
 
 
-def _project_qkv(cfg, p, x, positions=None, rope=None):
+def _project_qkv(cfg, p, x, positions=None, rope=None, plain_matmul=False):
     """x (B, S, d) -> q (B, S, Hq, hd), k/v (B, S, Hkv, hd), with the QKV
     bias and the rotary embedding where the config has them. ``rope`` is
     ``rope_angles(positions, ...)`` when the caller computed it once for
@@ -49,9 +54,9 @@ def _project_qkv(cfg, p, x, positions=None, rope=None):
         raise NotImplementedError(
             "the fused wqkv layout is ROADMAP Queue 1 item 2 (dense model "
             "core)")
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k, v = (qeinsum("bsd,dhk->bshk", x, p[name],
+                       plain_matmul=plain_matmul)
+               for name in ("wq", "wk", "wv"))
     if cfg.attn.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.attn.rope_base is not None and positions is not None:
@@ -93,35 +98,50 @@ def naive_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
 # ------------------------------------------------------------------ caches
 def make_cache(cfg, batch, max_len, *, dtype=torch.bfloat16,
                quantized=False, device=None):
-    """Allocate a float KV cache of ``max_len`` slots on ``device``
-    (default: the card). The local layers' window-sized rings and the
-    long-context cap belong to the blocks not yet ported."""
-    if quantized:
-        raise NotImplementedError(
-            "the int8 KV cache is ROADMAP Queue 1 item 9 (quantized "
-            "serving)")
+    """Allocate a KV cache of ``max_len`` slots on ``device`` (default:
+    the card): float ``dtype`` K/V, or with ``quantized`` int8 K/V and
+    zeroed fp32 scale planes ``k_scale``/``v_scale`` (B, L, Hkv). The
+    local layers' window-sized rings and the long-context cap belong to
+    the blocks not yet ported."""
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                              device=dev),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
+             "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                               device=dev),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if quantized:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=dev)
+    return cache
 
 
 def _cache_read_kv(cache, dtype):
-    """Cache K/V as float ``dtype`` (the int8 branch is item 9)."""
+    """Cache K/V as float ``dtype``, int8 entries dequantized through
+    their per-(position, head) scale planes. Empty slots (pos = -1) hold
+    zero payload and scale and are masked by attention either way."""
+    if "k_scale" in cache:
+        return (dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                dequantize_kv(cache["v"], cache["v_scale"], dtype))
     return cache["k"].to(dtype), cache["v"].to(dtype)
 
 
 def _kv_payload(cache, k, v):
-    """K/V cast to the cache's type, to be stored."""
+    """What a K/V write stores: K/V cast to a float cache's type, or, for
+    an int8 cache, quantized K/V and the scale planes of the written
+    span."""
+    if "k_scale" in cache:
+        qk, sk = quantize_kv(k)
+        qv, sv = quantize_kv(v)
+        return {"k": qk, "k_scale": sk, "v": qv, "v_scale": sv}
     return {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
 
 
 # ------------------------------------------------------------------- blocks
 def attn_apply(cfg, p, x, positions, *, causal, window=None, cache=None,
-               plain_attention=False, rope=None):
+               plain_attention=False, plain_matmul=False, rope=None):
     """Self-attention over the whole sequence, then the ``wo`` projection.
     Returns (out, cache).
 
@@ -130,10 +150,13 @@ def attn_apply(cfg, p, x, positions, *, causal, window=None, cache=None,
     a bucket hold valid positions and are attended to, as in JAX. With a
     ``cache`` (causal prefill from an empty cache) its k/v/pos/len are
     written in place; when S >= L the last L positions go to slots
-    0..L-1, as in JAX. ``plain_attention`` runs ``naive_attention``
-    instead of K1 (the reference the kernel path is held against)."""
+    0..L-1, as in JAX; an int8 cache gets the quantized K/V and their
+    scale planes. Attention reads the fresh, unquantized k/v, as in JAX.
+    ``plain_attention`` runs ``naive_attention`` instead of K1 (the
+    reference the kernel path is held against); ``plain_matmul``, see
+    ``qeinsum``."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, positions, rope)
+    q, k, v = _project_qkv(cfg, p, x, positions, rope, plain_matmul)
     softcap = cfg.attn.logit_softcap
     if plain_attention:
         a = naive_attention(q, k, v, positions, positions, causal=causal,
@@ -149,20 +172,24 @@ def attn_apply(cfg, p, x, positions, *, causal, window=None, cache=None,
             cache[key][:, :n] = val
         cache["pos"][:, :n] = positions[:, lo:]
         cache["len"].fill_(S)
-    return torch.einsum("bshk,hkd->bsd", a, p["wo"]), cache
+    return qeinsum("bshk,hkd->bsd", a, p["wo"],
+                   plain_matmul=plain_matmul), cache
 
 
 def attn_decode(cfg, p, x, positions, cache, *, window=None,
-                plain_attention=False, rope=None):
+                plain_attention=False, plain_matmul=False, rope=None):
     """Single-step decode. x: (B, 1, d); positions (B, 1); cache k/v:
     (B, L, Hkv, D) ring buffer. Writes each row's k/v and position at slot
     ``pos % L`` and adds one to ``len`` (in place), then attends over the
-    ring through K2, which rounds each cached K/V element to q's type as
-    it loads it. ``plain_attention`` reads the cache back in q's type and
-    runs ``naive_attention``, as the JAX model does. Returns (out,
-    cache)."""
+    ring through K2, which rounds each cached K/V element of a float cache
+    to q's type as it loads it. An int8 cache is written first (quantized)
+    and then dequantized whole to q's type for K2, the JAX order, so a
+    token's own K/V is read back through its stored scale.
+    ``plain_attention`` reads the cache back in q's type and runs
+    ``naive_attention``, as the JAX model does; ``plain_matmul``, see
+    ``qeinsum``. Returns (out, cache)."""
     B = x.shape[0]
-    q, k, v = _project_qkv(cfg, p, x, positions, rope)
+    q, k, v = _project_qkv(cfg, p, x, positions, rope, plain_matmul)
     L = cache["k"].shape[1]
     slot = positions[:, 0].long() % L                       # (B,)
     bidx = torch.arange(B, device=x.device)
@@ -171,11 +198,15 @@ def attn_decode(cfg, p, x, positions, cache, *, window=None,
     cache["pos"][bidx, slot] = positions[:, 0].to(cache["pos"].dtype)
     cache["len"] += 1
     softcap = cfg.attn.logit_softcap
-    if plain_attention:
+    if plain_attention or "k_scale" in cache:
         rk, rv = _cache_read_kv(cache, q.dtype)
+    else:                         # K2 rounds a float cache to q's type
+        rk, rv = cache["k"], cache["v"]
+    if plain_attention:
         out = naive_attention(q, rk, rv, positions, cache["pos"],
                               causal=True, window=window, softcap=softcap)
     else:
-        out = ops.gqa_decode(q, cache["k"], cache["v"], positions[:, 0],
-                             cache["pos"], window=window, softcap=softcap)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+        out = ops.gqa_decode(q, rk, rv, positions[:, 0], cache["pos"],
+                             window=window, softcap=softcap)
+    return qeinsum("bshk,hkd->bsd", out, p["wo"],
+                   plain_matmul=plain_matmul), cache

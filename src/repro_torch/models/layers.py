@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.quant.weights import is_quantized, qeinsum
+
 
 # ---------------------------------------------------------------- init utils
 def dense_init(gen: torch.Generator, shape, in_axis_dims, dtype):
@@ -144,10 +146,20 @@ def mlp_init(cfg, gen, d_ff=None, d_in=None):
             "w_down": dense_init(gen, (d_ff, d_in), d_ff, dt)}
 
 
-def mlp_apply(cfg, p, x):
+def mlp_apply(cfg, p, x, *, plain_matmul=False):
+    """Float weights take ``torch.einsum`` (gated) or ``@``; quantized
+    leaves go through ``qeinsum`` (K3 on the card) with JAX's equations.
+    ``plain_matmul``: see ``qeinsum``."""
     if cfg.gated_mlp:
-        gu = torch.einsum("bsd,dcf->bscf", x, p["w_in"])
+        gu = qeinsum("bsd,dcf->bscf", x, p["w_in"],
+                     plain_matmul=plain_matmul)
         h = act_fn(cfg.act)(gu[:, :, 0]) * gu[:, :, 1]
+    elif is_quantized(p["w_up"]):
+        h = act_fn(cfg.act)(qeinsum("bsd,df->bsf", x, p["w_up"],
+                                    plain_matmul=plain_matmul))
     else:
         h = act_fn(cfg.act)(x @ p["w_up"])
+    if is_quantized(p["w_down"]):
+        return qeinsum("bsf,fd->bsd", h, p["w_down"],
+                       plain_matmul=plain_matmul)
     return h @ p["w_down"]

@@ -74,37 +74,39 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                dtype=torch.bfloat16, device=None):
+                dtype=torch.bfloat16, kv_quant=None, device=None):
     """Decode caches stacked over periods, ``{"blk0": {k, v, pos, len}}``
-    with a leading (n_periods,) axis, on ``device`` (default: the card)."""
+    with a leading (n_periods,) axis, on ``device`` (default: the card).
+    ``kv_quant="int8"`` allocates int8 K/V with their fp32 scale planes
+    ``k_scale``/``v_scale``."""
     _check_supported(cfg)
     one = attn_mod.make_cache(cfg, batch, max_len, dtype=dtype,
-                              device=device)
+                              quantized=kv_quant == "int8", device=device)
     return {"blk0": {k: t.expand(cfg.n_periods, *t.shape).clone()
                      for k, t in one.items()}}
 
 
 def _apply_block(cfg, p, x, positions, cache, *, mode, causal,
-                 plain_attention, rope):
+                 plain_attention, plain_matmul, rope):
     h = apply_norm(cfg, p["norm1"], x)
     if mode == "decode":
         a, _ = attn_mod.attn_decode(cfg, p["attn"], h, positions, cache,
                                     plain_attention=plain_attention,
-                                    rope=rope)
+                                    plain_matmul=plain_matmul, rope=rope)
     else:
         a, _ = attn_mod.attn_apply(cfg, p["attn"], h, positions,
                                    causal=causal, cache=cache,
                                    plain_attention=plain_attention,
-                                   rope=rope)
+                                   plain_matmul=plain_matmul, rope=rope)
     x = x + a
     h = apply_norm(cfg, p["norm2"], x)
-    return x + mlp_apply(cfg, p["mlp"], h)
+    return x + mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
 
 
 def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             caches=None, mode: str = "full", causal: bool = True,
             return_hidden: bool = False, plain_attention: bool = False,
-            head_w=None):
+            plain_matmul: bool = False, head_w=None):
     """Run the model. tokens: (B, S) int; positions: (B, S), default
     0..S-1.
 
@@ -115,7 +117,9 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     states (B, S, d_model) in the model dtype with ``return_hidden``, else
     fp32 logits (B, S, padded_vocab); ``head_w`` is ``head_weight``'s
     matrix when the caller cast it once. ``plain_attention`` swaps K1/K2
-    for ``naive_attention`` (the reference path)."""
+    for ``naive_attention`` and ``plain_matmul`` K3 for its plain version
+    (the reference path). Parameters may be ``quantize_params``' tree:
+    its int8 projections go through K3."""
     if mode in ("chunk", "verify"):
         raise NotImplementedError(
             f"mode={mode!r}: chunked prefill is ROADMAP Queue 1 item 7, "
@@ -141,7 +145,8 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
                  {k: t[i] for k, t in cache_blk.items()})
         x = _apply_block(cfg, _index_tree(blk, i), x, positions, cache,
                          mode=mode, causal=causal,
-                         plain_attention=plain_attention, rope=rope)
+                         plain_attention=plain_attention,
+                         plain_matmul=plain_matmul, rope=rope)
     x = apply_norm(cfg, params["final_norm"], x)
     if return_hidden:
         return x

@@ -20,9 +20,11 @@ first eos. Every request's result is copied to the host before its future
 resolves. An optional ``AdmissionQueue`` bounds in-flight work (the
 paper's proposed §4 mitigation): submit try-acquires a slot and, when
 saturated, parks the request on a priority-ordered overflow queue; a
-finishing request hands its slot to the best parked one. The KV pool and
-the continuous scheduler, quantized weights and the quantized KV cache are
-not ported yet and raise.
+finishing request hands its slot to the best parked one. With
+``weight_quant="int8"`` the engine quantizes the tree once at init and
+every projection runs K3; with ``kv_quant="int8"`` (decoder mode) the
+caches hold int8 K/V with fp32 scale planes. The KV pool and the
+continuous scheduler are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ from repro_torch import resolve_device
 from repro_torch.models import (decode_segment, forward, make_caches,
                                 sample_logits)
 from repro_torch.models.layers import head_weight, lm_head_apply
+from repro_torch.quant import (params_bytes, quantize_params,
+                               validate_kv_quant)
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      FINISH_LENGTH, GenerationRequest,
                                      GenerationResult, HeadFn,
@@ -62,7 +66,9 @@ class EngineConfig:
     which gives the tokens the JAX engine's two paths give). The
     continuous decoder's knobs belong to ROADMAP Queue 1 items 6-10: the
     decoder runs only with ``continuous=False, use_cache_pool=False`` and
-    the features that need the continuous path raise, as in JAX."""
+    the features that need the continuous path raise, as in JAX.
+    ``weight_quant`` (None or "int8") serves both modes; ``kv_quant``
+    (None or "int8") the decoder."""
     mode: str = "encoder"             # 'encoder' | 'decoder'
     max_batch: int = 32
     batch_window_ms: float = 2.0
@@ -124,12 +130,6 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _tree_leaves(v)]
-    return [tree]
-
-
 def _check_config(ec: EngineConfig) -> None:
     if ec.mode not in ("encoder", "decoder"):
         raise ValueError(f"mode must be 'encoder' or 'decoder', got "
@@ -139,12 +139,14 @@ def _check_config(ec: EngineConfig) -> None:
             "mode='decoder' runs batch at a time here (continuous=False, "
             "use_cache_pool=False); the KV cache pool and the continuous "
             "scheduler are ROADMAP Queue 1 item 6")
-    if ec.weight_quant is not None:
-        raise NotImplementedError(
-            "weight_quant is ROADMAP Queue 1 item 9 (quantized serving)")
-    if ec.kv_quant is not None:
-        raise NotImplementedError(
-            "kv_quant is ROADMAP Queue 1 item 9 (quantized serving)")
+    # the JAX engine's quantization errors
+    if ec.weight_quant not in (None, "int8"):
+        raise ValueError(f"weight_quant must be None or 'int8', got "
+                         f"{ec.weight_quant!r}")
+    validate_kv_quant(ec.kv_quant)
+    if ec.kv_quant and ec.mode != "decoder":
+        raise ValueError("kv_quant requires mode='decoder' (the KV "
+                         "cache only exists on the decode path)")
     # the JAX engine's errors: both features need the continuous path
     for name in ("prefix_cache", "spec_decode"):
         if getattr(ec, name):
@@ -165,16 +167,20 @@ class ServingEngine:
         card). ``head_fn(params, hidden, mask)`` — see
         ``serving.api.HeadFn`` — maps the encoder's final hidden states to
         each request's payload; without it a request resolves to its
-        hidden states. Decoder requests resolve to their tokens."""
+        hidden states. Decoder requests resolve to their tokens. With
+        ``weight_quant="int8"`` the tree is quantized on the device, once
+        (``quantize_params``); otherwise the engine keeps the caller's
+        leaves."""
         _check_config(engine_cfg)
         self.device = resolve_device(device)      # guarded-by: init
         self.cfg = cfg                    # guarded-by: init
         self.params = _tree_map(          # guarded-by: init
             lambda t: t.to(self.device), params)
+        if engine_cfg.weight_quant == "int8":
+            self.params = quantize_params(self.params)
         self.ec = engine_cfg              # guarded-by: init
         self.head_fn = head_fn            # guarded-by: init
-        self._weight_bytes = sum(         # guarded-by: init
-            t.numel() * t.element_size() for t in _tree_leaves(self.params))
+        self._weight_bytes = params_bytes(self.params)   # guarded-by: init
         self._q: "queue.Queue[_Request]" = queue.Queue()  # guarded-by: threadsafe
         self._admission = (AdmissionQueue(engine_cfg.max_inflight)  # guarded-by: threadsafe
                            if engine_cfg.max_inflight else None)
@@ -426,8 +432,8 @@ class ServingEngine:
     def _decode_batch(self, toks, lens, temp, topk, seed):  # holds: worker
         """Prefill -> each row's first token from the logits at its last
         real position -> ``decode_segment`` over the remaining steps, on
-        fresh fp32 caches of ``bucket + max_new_tokens`` slots (the JAX
-        engine's layout). Only the last real position of each row goes
+        fresh caches of ``bucket + max_new_tokens`` slots, fp32 or, with
+        ``kv_quant``, int8 (the JAX engine's layout). Only the last real position of each row goes
         through the head: the same values per row as JAX's full
         (B, bucket, vocab) logits, without them. ``temp``/``topk``/``seed``
         are None for an all-greedy batch. Returns int32 (B, T) on the
@@ -435,7 +441,7 @@ class ServingEngine:
         cfg, params, T = self.cfg, self.params, self.ec.max_new_tokens
         B, bucket = toks.shape
         caches = make_caches(cfg, B, bucket + T, dtype=torch.float32,
-                             device=self.device)
+                             kv_quant=self.ec.kv_quant, device=self.device)
         hid = forward(cfg, params, tokens=toks, caches=caches, mode="full",
                       return_hidden=True)
         last = hid[torch.arange(B, device=self.device), lens - 1][:, None]

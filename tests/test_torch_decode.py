@@ -534,8 +534,11 @@ def test_decoder_gates_raise(weights):
                     mode=mode)
     with pytest.raises(ValueError, match="needs caches"):
         forward(CFG, tp, tokens=tok, mode="decode")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ta.make_cache(CFG, 1, 8, quantized=True, device="cpu")
+    q8 = ta.make_cache(CFG, 1, 8, quantized=True, device="cpu")
+    assert q8["k"].dtype == q8["v"].dtype == torch.int8
+    for key in ("k_scale", "v_scale"):
+        assert q8[key].dtype == torch.float32 and not q8[key].any()
+        assert tuple(q8[key].shape) == (1, 8, CFG.n_kv_heads)
     with pytest.raises(NotImplementedError, match="item 2"):
         forward(dataclasses.replace(CFG, n_heads=32, n_kv_heads=16,
                                     head_dim=16), tp, tokens=tok)

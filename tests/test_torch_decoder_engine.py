@@ -214,10 +214,10 @@ def test_warmup_serves_each_bucket_and_discard_drops_it(params):
      "item 6"),
     (dict(continuous=False, use_cache_pool=True), NotImplementedError,
      "item 6"),
-    (dict(continuous=False, use_cache_pool=False, weight_quant="int8"),
-     NotImplementedError, "item 9"),
-    (dict(continuous=False, use_cache_pool=False, kv_quant="int8"),
-     NotImplementedError, "item 9"),
+    (dict(continuous=False, use_cache_pool=False, weight_quant="int4"),
+     ValueError, "weight_quant must be None or 'int8'"),
+    (dict(continuous=False, use_cache_pool=False, kv_quant="int4"),
+     ValueError, "kv_quant must be one of"),
     (dict(continuous=False, use_cache_pool=False, prefix_cache=True),
      ValueError, "continuous decoder path"),
     (dict(continuous=False, use_cache_pool=False, spec_decode=True),
@@ -230,9 +230,13 @@ def test_decoder_config_gates_raise(params, kw, exc, match):
 
 
 def test_jax_engine_rejects_the_same_features(jx):
-    """The two ValueErrors above are the JAX engine's own."""
-    for kw in (dict(prefix_cache=True), dict(spec_decode=True)):
-        with pytest.raises(ValueError, match="continuous decoder path"):
+    """The ValueErrors above are the JAX engine's own."""
+    for kw, match in ((dict(prefix_cache=True), "continuous decoder path"),
+                      (dict(spec_decode=True), "continuous decoder path"),
+                      (dict(weight_quant="int4"),
+                       "weight_quant must be None or 'int8'"),
+                      (dict(kv_quant="int4"), "kv_quant must be one of")):
+        with pytest.raises(ValueError, match=match):
             jx["Engine"](jx["cfg"], jx["params"], jx["EngineConfig"](
                 mode="decoder", continuous=False, use_cache_pool=False,
                 **kw))

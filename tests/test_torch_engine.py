@@ -178,10 +178,15 @@ def test_close_fails_pending_futures(params):
 
 
 def test_unported_modes_raise(params):
-    for kw, match in ((dict(mode="decoder"), "item 6"),
-                      (dict(weight_quant="int8"), "item 9"),
-                      (dict(kv_quant="int8"), "item 9")):
-        with pytest.raises(NotImplementedError, match=match):
+    """The continuous decoder is not ported; quantization is, and takes
+    the JAX engine's errors: a bad weight_quant, and kv_quant outside
+    decoder mode."""
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ServingEngine(CFG, params, EngineConfig(mode="decoder"),
+                      device="cpu")
+    for kw, match in ((dict(weight_quant="int4"), "weight_quant"),
+                      (dict(kv_quant="int8"), "requires mode='decoder'")):
+        with pytest.raises(ValueError, match=match):
             ServingEngine(CFG, params, EngineConfig(**kw), device="cpu")
 
 
