@@ -54,7 +54,29 @@ Phases (each raises on failure; nothing is caught):
  14. time K3 and K4 at the main shapes by device time beside their
      bounds, plain versions and ``torch.matmul`` on the weight dequantized
      beforehand (the yardstick; the port never calls it), then one int8
-     GECToR forward and one int8 Qwen2 decode step beside the float ones.
+     GECToR forward and one int8 Qwen2 decode step beside the float ones;
+ 15. hold K5 (the RG-LRU linear scan) against its plain version at the
+     hybrid's shapes, a long S and a ragged W, fp32, within 1e-5 of the
+     output's largest magnitude, with an identity channel (a = 1, b = 0)
+     that must stay exactly 0;
+ 16. hold K1 and K2 at head dim 256 against their plain versions in
+     phases 2 and 6's settings and at the hybrid's shapes, with their
+     tolerances and exact visit counts;
+ 17. RecurrentGemma-9B at full width in bf16 (random weights from seed
+     0), cut to one period (19 layers) so that an fp32 copy fits beside
+     it: a B=32 bucket-128 batch prefilled (K1, K5) and decoded 15
+     teacher-forced steps (K2), the kernel path against the plain path
+     (plain attention and plain scan), both against the fp32 model,
+     gated by phase 7's factors;
+ 18. serve 32 requests (greedy, sampled, eos-stopped) through the
+     decoder engine at full depth (38 layers) as one batch: tokens and
+     finish reasons equal direct calls (the decode loop in sync debug
+     mode "error"), and exactly 26 K5, 12 K1, 12 x 15 K2 and no K3/K4
+     launches;
+ 19. time K5, and K1 and K2 at the hybrid's shapes, beside their bounds,
+     plain versions and SDPA (K5 has no library call), one full-depth
+     prefill and one decode step broken down by kernel with the device's
+     idle share, and the hybrid's ``weight_bytes``.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -74,6 +96,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 FP32_TOL = 1e-4                    # fp32 kernel vs fp32 plain version
 BF16_TOL = 2e-2                    # bf16 kernel vs fp32 plain version
 TAG_AGREEMENT = 0.99               # bf16 GEMMs round by batch width
@@ -86,6 +109,14 @@ MAIN = dict(B=32, S=128, H=12, D=64)   # encoder serving shape (bucket 128)
 # decoder: Qwen2-0.5B, B=32, bucket 128 + 16 new tokens, bf16 q, fp32 cache
 DECODE_MAIN = dict(B=32, L=144, Hq=14, Hkv=2, D=64)
 NEW_TOKENS = 16
+# RecurrentGemma-9B's local attention at B=32, bucket 128 + 16 new tokens:
+# 16 query heads over one kv head of 256, a ring of 144 slots (the window
+# of 2048 clamped to the batch's cache length)
+HYBRID_MAIN = dict(B=32, S=128, L=144, Hq=16, Hkv=1, D=256)
+HYBRID_WINDOW = 2048
+# K5's main shape: the hybrid's prefill scan at B=32, bucket 128, W=4096
+SCAN_MAIN = (32, 128, 4096)
+SCAN_TOL = 1e-5                    # relative to the output's largest value
 # Against the fp32 model, the kernels' bf16 logits may be at most this much
 # worse than the plain-attention bf16 path's (max and mean abs error), and
 # their top-1 flips at most TOP1_FLIP_FACTOR x plain's (or 1% of rows).
@@ -169,14 +200,11 @@ def randn(gen, *shape, dtype):
     return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
 
-def phase_kernel_parity(fa, attn_block_sizes):
-    """K1 against its plain version; returns the main-shape bf16 error.
-    The decoder's prefill settings take bq from ``attn_block_sizes`` as the
-    model does: B=32 bucket 128 (phases 7 and 9) and B=16 in buckets 32,
-    64 and 128 (the engine's batches in phase 8)."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-
+def k1_settings(attn_block_sizes):
+    """Phase 2's K1 settings, D = 64 and 128. The decoder's prefill
+    settings take bq from ``attn_block_sizes`` as the model does: B=32
+    bucket 128 (phases 7 and 9) and B=16 in buckets 32, 64 and 128 (the
+    engine's batches in phase 8)."""
     def prefill_bq(B, S):
         return attn_block_sizes("prefill", S, bh=B * DECODE_MAIN["Hq"])[0]
     decoder = [(f"decoder prefill B={B} S={S}", B, S, S, DECODE_MAIN["Hq"],
@@ -204,6 +232,41 @@ def phase_kernel_parity(fa, attn_block_sizes):
          MAIN["H"], MAIN["D"], 64, dict(causal=False)),
         *decoder,
     ]
+    return settings
+
+
+def k1_settings_256(attn_block_sizes):
+    """Phase 16's K1 settings at D = 256, phase 2's kinds, and the
+    hybrid's prefill (B=32 bucket 128, 16 query heads over one kv head,
+    causal with the local window of 2048) at the bq the model takes."""
+    h = HYBRID_MAIN
+    bq = attn_block_sizes("prefill", h["S"], bh=h["B"] * h["Hq"],
+                          head_dim=h["D"])[0]
+    return [  # (name, B, Sq, Skv, Hq, Hkv, D, bq, kwargs)
+        ("D=256 non-causal kv_len<Skv", 2, 160, 160, 4, 4, 256, 32,
+         dict(causal=False, kv_len=131)),
+        ("D=256 causal", 2, 256, 256, 4, 4, 256, 32, dict(causal=True)),
+        ("D=256 causal window 64", 2, 256, 256, 4, 4, 256, 32,
+         dict(causal=True, window=64)),
+        ("D=256 softcap 50", 2, 128, 128, 4, 4, 256, 32,
+         dict(causal=False, softcap=50.0)),
+        ("D=256 GQA G=16 causal", 2, 128, 128, 16, 1, 256, 32,
+         dict(causal=True)),
+        ("D=256 Sq != Skv", 3, 100, 228, 4, 2, 256, 32,
+         dict(causal=False)),
+        ("D=256 fully masked rows", 2, 160, 160, 4, 4, 256, 32,
+         dict(causal=True, window=8, kv_len=100)),
+        ("hybrid prefill", h["B"], h["S"], h["S"], h["Hq"], h["Hkv"],
+         h["D"], bq, dict(causal=True, window=HYBRID_WINDOW,
+                          kv_len=h["S"])),
+    ]
+
+
+def phase_kernel_parity(fa, settings, main="main shape"):
+    """K1 against its plain version in each of ``settings``; returns the
+    bf16 error of the setting named ``main`` and the settings checked."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
     main_err, checked = None, 0
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for name, B, Sq, Skv, Hq, Hkv, D, bq, kw in settings:
@@ -233,7 +296,7 @@ def phase_kernel_parity(fa, attn_block_sizes):
                 raise AssertionError(f"K1 disagrees with its plain version: "
                                      f"{name} {dtype}")
             checked += 1
-            if name == "main shape" and dtype == torch.bfloat16:
+            if name == main and dtype == torch.bfloat16:
                 main_err = err
     return main_err, checked
 
@@ -330,14 +393,10 @@ def decode_bound_ms(q_pos, kv_pos, Hq, Hkv, D, q_item, kv_item,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_decode_parity(da):
-    """K2 against its plain version; returns the main-shape error (bf16 q,
-    fp32 cache) and the number of settings checked."""
-    rng = np.random.default_rng(3)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
+def k2_settings():
+    """Phase 6's K2 settings, D = 64 and 128."""
     m = DECODE_MAIN
-    settings = [  # (name, B, L, Hq, Hkv, D, kv_pos pattern, kwargs)
+    return [  # (name, B, L, Hq, Hkv, D, kv_pos pattern, kwargs)
         ("full cache", 4, 128, 8, 2, 64, "full", {}),
         ("short prefix, long ring", 4, 1024, 8, 2, 64, "prefix", {}),
         ("wrapped ring", 4, 160, 8, 2, 128, "ring", {}),
@@ -353,6 +412,38 @@ def phase_decode_parity(da):
         ("main decode shape", m["B"], m["L"], m["Hq"], m["Hkv"], m["D"],
          "full", {}),
     ]
+
+
+def k2_settings_256():
+    """Phase 16's K2 settings at D = 256, phase 6's kinds, and the
+    hybrid's decode read (B=32, 144 slots, 16 query heads over one kv
+    head, the local window of 2048)."""
+    h = HYBRID_MAIN
+    return [  # (name, B, L, Hq, Hkv, D, kv_pos pattern, kwargs)
+        ("D=256 full cache", 4, 128, 16, 1, 256, "full", {}),
+        ("D=256 short prefix, long ring", 4, 1024, 16, 1, 256, "prefix",
+         {}),
+        ("D=256 wrapped ring", 4, 160, 8, 2, 256, "ring", {}),
+        ("D=256 empty slots", 4, 256, 16, 1, 256, "holes", {}),
+        ("D=256 window 64", 4, 512, 16, 1, 256, "ring", dict(window=64)),
+        ("D=256 softcap 50", 4, 192, 16, 1, 256, "full",
+         dict(softcap=50.0)),
+        ("D=256 G=1", 3, 96, 4, 4, 256, "full", {}),
+        ("D=256 window softcap", 2, 300, 16, 1, 256, "ring",
+         dict(window=100, softcap=30.0)),
+        ("D=256 ragged L=157", 5, 157, 16, 1, 256, "ring", {}),
+        ("hybrid decode shape", h["B"], h["L"], h["Hq"], h["Hkv"], h["D"],
+         "full", dict(window=HYBRID_WINDOW)),
+    ]
+
+
+def phase_decode_parity(da, settings, main="main decode shape"):
+    """K2 against its plain version in each of ``settings``; returns the
+    error of the setting named ``main`` (bf16 q, fp32 cache) and the
+    number of settings checked."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
     combos = ((torch.float32, torch.float32, FP32_TOL),
               (torch.bfloat16, torch.bfloat16, BF16_TOL),
               (torch.bfloat16, torch.float32, BF16_TOL))
@@ -389,7 +480,7 @@ def phase_decode_parity(da):
                 raise AssertionError(f"K2 disagrees with its plain version: "
                                      f"{name} {label}")
             checked += 1
-            if name == "main decode shape" and q_dt == torch.bfloat16 \
+            if name == main and q_dt == torch.bfloat16 \
                     and kv_dt == torch.float32:
                 main_err = err
     return main_err, checked
@@ -420,7 +511,8 @@ def prompt_batch(rng, n, lo, hi, bucket, vocab):
 
 def first_logits(cfg, params, toks, lens, caches, plain, plain_matmul=False):
     """Prefill (filling ``caches``) and the fp32 logits (B, V) at each
-    row's last real position, as the engine takes them."""
+    row's last real position, as the engine takes them. ``plain`` takes
+    plain attention and the plain scan."""
     from repro_torch.models import forward
     from repro_torch.models.layers import head_weight, lm_head_apply
     hid = forward(cfg, params, tokens=toks, caches=caches, mode="full",
@@ -431,13 +523,13 @@ def first_logits(cfg, params, toks, lens, caches, plain, plain_matmul=False):
     return lm_head_apply(cfg, None, last[:, None], w=w)[:, 0], w
 
 
-def phase_qwen2_gates(cfg, params, *, kv_quant=None, label=""):
-    """Kernel path (K1 prefill, K2 decode, K3 for int8 weights) and plain
-    path (plain attention and plain matmuls) in bf16 against the fp32
-    model (plain, TF32 off), teacher forced on the fp32 model's greedy
-    tokens; then, for the float model, free-running greedy streams of the
-    two bf16 paths. ``kv_quant`` gives every path int8 caches. Returns
-    the readings."""
+def phase_decoder_gates(cfg, params, model, *, kv_quant=None, label=""):
+    """Kernel path (K1 prefill, K2 decode, K3 for int8 weights, K5 for the
+    recurrent blocks' prefill) and plain path (plain attention, matmuls
+    and scan) in bf16 against the fp32 model (plain, TF32 off), teacher
+    forced on the fp32 model's greedy tokens; then, for the float model,
+    free-running greedy streams of the two bf16 paths. ``kv_quant`` gives
+    every path int8 caches. Returns the readings."""
     from repro_torch.models import decode_segment, forward, make_caches
     rng = np.random.default_rng(7)
     B, bucket = DECODE_MAIN["B"], 128
@@ -481,7 +573,7 @@ def phase_qwen2_gates(cfg, params, *, kv_quant=None, label=""):
             diff = (got[..., :V] - ref[..., :V]).abs()
             flips = int((got.argmax(-1) != ref.argmax(-1)).sum())
             readings[path] = (diff.max().item(), diff.mean().item(), flips)
-            print(f"Qwen2-0.5B{label} {path:12s} vs fp32 over prefill + "
+            print(f"{model}{label} {path:12s} vs fp32 over prefill + "
                   f"{NEW_TOKENS - 1} teacher-forced steps x {B} rows: "
                   f"logits max_abs_err {readings[path][0]:.4e}, mean "
                   f"{readings[path][1]:.4e}, top-1 flips {flips} of "
@@ -557,19 +649,24 @@ def reset_launches(kernels):
 
 
 def phase_decoder_engine(cfg, params, kernels, *, quant=None,
-                         spans=((8, 32, 32), (33, 64, 64), (65, 120, 128))):
-    """One wave of 16 requests per (shortest, longest prompt, bucket) in
-    ``spans`` (default: 48 requests in buckets 32/64/128): per wave 8
-    greedy, 4 sampled (temperature 0.8, top_k 50, distinct seeds), 4
-    greedy with an eos id their stream reaches. ``quant="int8"`` serves
-    with int8 weights and an int8 KV cache; the direct calls then run on
-    the engine's quantized tree. ``kernels`` are K1, K2, K3 and K4's
-    wrappers. Returns (launches of K1/K2/K3/K4, the engine's window,
-    tokens, wall seconds of the burst, batch sizes, weight bytes)."""
+                         spans=((8, 32, 32), (33, 64, 64), (65, 120, 128)),
+                         wave=16, label=""):
+    """One wave of ``wave`` requests per (shortest, longest prompt,
+    bucket) in ``spans`` (default: 48 requests in buckets 32/64/128): per
+    wave half greedy, a quarter sampled (temperature 0.8, top_k 50,
+    distinct seeds), a quarter greedy with an eos id their stream
+    reaches. ``quant="int8"`` serves with int8 weights and an int8 KV
+    cache; the direct calls then run on the engine's quantized tree.
+    ``kernels`` are K1, K2, K3, K4 and K5's wrappers; per batch K1 must
+    launch once per attention layer, K2 once per attention layer and
+    decode step, K3 six times per layer and step under int8 weights, K4
+    never, and K5 once per recurrent layer. Returns (launches of
+    K1..K5, the engine's window, tokens, wall seconds of the burst,
+    batch sizes, weight bytes)."""
     from repro_torch.serving import EngineConfig, ServingEngine
     from repro_torch.serving.api import SamplingParams
     ec = EngineConfig(mode="decoder", continuous=False, use_cache_pool=False,
-                      max_batch=16, batch_window_ms=200.0,
+                      max_batch=wave, batch_window_ms=200.0,
                       pad_buckets=tuple(b for _, _, b in spans),
                       max_new_tokens=NEW_TOKENS, weight_quant=quant,
                       kv_quant=quant)
@@ -578,12 +675,12 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
         rng = np.random.default_rng(11)
         waves = []
         for w, (lo, hi, bucket) in enumerate(spans):
-            prompts, toks, lens = prompt_batch(rng, 16, lo, hi, bucket,
+            prompts, toks, lens = prompt_batch(rng, wave, lo, hi, bucket,
                                                cfg.vocab_size)
-            temp = np.zeros(16, np.float32)
-            topk = np.zeros(16, np.int32)
-            seed = np.zeros(16, np.int32)
-            kinds = ["greedy", "greedy", "sampled", "eos"] * 4
+            temp = np.zeros(wave, np.float32)
+            topk = np.zeros(wave, np.int32)
+            seed = np.zeros(wave, np.int32)
+            kinds = ["greedy", "greedy", "sampled", "eos"] * (wave // 4)
             for i, kind in enumerate(kinds):
                 if kind == "sampled":
                     temp[i], topk[i], seed[i] = 0.8, 50, 100 * w + i
@@ -606,7 +703,7 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
                         top_k=int(topk[i]) or None, seed=int(seed[i])))
                     want.append((row, "length"))
             waves.append((prompts, sampling, want))
-        eng.warmup(batch_sizes=[16], buckets=ec.pad_buckets)
+        eng.warmup(batch_sizes=[wave], buckets=ec.pad_buckets)
         eng.discard_samples()
         reset_launches(kernels)
         t0 = time.perf_counter()
@@ -622,20 +719,22 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
     finally:
         eng.close()
     n_batches = len(batch_sizes)
-    tag = f" ({quant} weights and KV)" if quant else ""
+    tag = label + (f" ({quant} weights and KV)" if quant else "")
     print(f"decoder engine{tag}: {sum(map(len, results))} requests in "
           f"{n_batches} batches {batch_sizes}; K1 launches {launches[0]}, "
-          f"K2 launches {launches[1]}, K3/K4 launches {launches[2:]}",
-          flush=True)
-    if batch_sizes != [16] * len(spans):
+          f"K2 launches {launches[1]}, K3/K4 launches {launches[2:4]}, K5 "
+          f"launches {launches[4]}", flush=True)
+    if batch_sizes != [wave] * len(spans):
         raise AssertionError(f"waves were not served as one batch each: "
                              f"{batch_sizes}")
-    want_k1 = cfg.n_layers * n_batches
-    want_k2 = cfg.n_layers * (NEW_TOKENS - 1) * n_batches
-    want_k3 = (6 * cfg.n_layers * NEW_TOKENS * n_batches if quant else 0)
-    if launches != (want_k1, want_k2, want_k3, 0):
-        raise AssertionError(f"launches K1/K2/K3/K4 {launches} != "
-                             f"({want_k1}, {want_k2}, {want_k3}, 0)")
+    n_attn = sum(k != "rglru" for k in cfg.layer_pattern)
+    n_rec = cfg.n_layers - n_attn
+    want = (n_attn * n_batches, n_attn * (NEW_TOKENS - 1) * n_batches,
+            6 * cfg.n_layers * NEW_TOKENS * n_batches if quant else 0, 0,
+            n_rec * n_batches)
+    if launches != want:
+        raise AssertionError(f"launches K1/K2/K3/K4/K5 {launches} != "
+                             f"{want}")
     n_tok = 0
     for (_, _, want), got in zip(waves, results):
         for (w_tokens, w_reason), r in zip(want, got):
@@ -645,7 +744,7 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
                     f"engine result {r.tokens} ({r.finish_reason}) != "
                     f"direct {w_tokens} ({w_reason})")
             n_tok += len(r.tokens)
-    n_req = 16 * len(spans)
+    n_req = wave * len(spans)
     print(f"decoder engine{tag} tokens and finish reasons equal direct "
           f"prefill + decode_segment calls on the same batches: {n_req} of "
           f"{n_req} ({n_tok} tokens); decode_segment ran in sync debug mode "
@@ -653,52 +752,54 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
     return launches, served, n_tok, wall, batch_sizes, weight_bytes
 
 
-def phase_decode_timings(da, name):
-    """K2 by device time at B in {1, 8, 32} x L in {144, 528}, Qwen2's
-    heads (14 / 2 of 64), bf16 q over an fp32 cache, every slot live;
-    beside it its bound, plain version and SDPA. Returns the main row."""
+def phase_decode_timings(da, name, m=DECODE_MAIN,
+                         shapes=tuple((B, L) for B in (1, 8, 32)
+                                      for L in (144, 528))):
+    """K2 by device time at each (B, L) of ``shapes`` (default: B in {1,
+    8, 32} x L in {144, 528}) with ``m``'s heads (default Qwen2's, 14 / 2
+    of 64), bf16 q over an fp32 cache, every slot live; beside it its
+    bound, plain version and SDPA. Returns the row of ``m``'s (B, L)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    m = DECODE_MAIN
     Hq, Hkv, D = m["Hq"], m["Hkv"], m["D"]
     main = None
-    for B in (1, 8, 32):
-        for L in (144, 528):
-            q = randn(gen, B, 1, Hq, D, dtype=torch.bfloat16)
-            k = randn(gen, B, L, Hkv, D, dtype=torch.float32)
-            v = randn(gen, B, L, Hkv, D, dtype=torch.float32)
-            q_pos = np.full(B, L - 1, np.int32)
-            kv_pos = np.tile(np.arange(L, dtype=np.int32), (B, 1))
-            qp = torch.from_numpy(q_pos).cuda()
-            kvp = torch.from_numpy(kv_pos).cuda()
+    for B, L in shapes:
+        q = randn(gen, B, 1, Hq, D, dtype=torch.bfloat16)
+        k = randn(gen, B, L, Hkv, D, dtype=torch.float32)
+        v = randn(gen, B, L, Hkv, D, dtype=torch.float32)
+        q_pos = np.full(B, L - 1, np.int32)
+        kv_pos = np.tile(np.arange(L, dtype=np.int32), (B, 1))
+        qp = torch.from_numpy(q_pos).cuda()
+        kvp = torch.from_numpy(kv_pos).cuda()
 
-            def k2():
-                return da.decode_attention(q, k, v, qp, kvp)
-            t_k = device_ms(k2)
-            t_ev = cuda_ms(k2)
-            t_p = device_ms(lambda: da.decode_attention_plain(
-                q, k, v, qp, kvp), iters=5)
-            qt = q.transpose(1, 2)                           # (B, Hq, 1, D)
-            kt = k.to(torch.bfloat16).transpose(1, 2)        # cast beforehand
-            vt = v.to(torch.bfloat16).transpose(1, 2)
-            mask = ((kvp >= 0) & (kvp <= qp[:, None]))[:, None, None, :]
-            t_s = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                         enable_gqa=True))
-            bound, by = decode_bound_ms(q_pos, kv_pos, Hq, Hkv, D, 2, 4)
-            print(f"timing K2 B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} bf16 q "
-                  f"fp32 cache, grid {B * Hkv} blocks, device time: kernel "
-                  f"{fmt_ms(t_k)}, plain {fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}, "
-                  f"bound {bound:.5f} ms ({by}); kernel by events over "
-                  f"back-to-back calls {t_ev:.4f} ms [{name}]", flush=True)
-            if (B, L) == (m["B"], m["L"]):
-                main = (t_k if t_k is not None else t_ev, t_p, t_s, bound, by)
+        def k2():
+            return da.decode_attention(q, k, v, qp, kvp)
+        t_k = device_ms(k2)
+        t_ev = cuda_ms(k2)
+        t_p = device_ms(lambda: da.decode_attention_plain(
+            q, k, v, qp, kvp), iters=5)
+        qt = q.transpose(1, 2)                           # (B, Hq, 1, D)
+        kt = k.to(torch.bfloat16).transpose(1, 2)        # cast beforehand
+        vt = v.to(torch.bfloat16).transpose(1, 2)
+        mask = ((kvp >= 0) & (kvp <= qp[:, None]))[:, None, None, :]
+        t_s = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                     enable_gqa=True))
+        bound, by = decode_bound_ms(q_pos, kv_pos, Hq, Hkv, D, 2, 4)
+        print(f"timing K2 B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} bf16 q "
+              f"fp32 cache, grid {B * Hkv} blocks, device time: kernel "
+              f"{fmt_ms(t_k)}, plain {fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}, "
+              f"bound {bound:.5f} ms ({by}); kernel by events over "
+              f"back-to-back calls {t_ev:.4f} ms [{name}]", flush=True)
+        if (B, L) == (m["B"], m["L"]):
+            main = (t_k if t_k is not None else t_ev, t_p, t_s, bound, by)
     return main
 
 
 def phase_decode_step(cfg, params, name, *, kv_quant=None,
-                      modes=(False, True), label=""):
-    """One decode step of Qwen2-0.5B at B=32 bucket 128 (after a prefill):
+                      modes=(False, True), label="", model="Qwen2-0.5B",
+                      top=10):
+    """One decode step of ``model`` at B=32 bucket 128 (after a prefill):
     the forward in decode mode plus token selection, greedy and sampled
     (temperature 0.8, top_k 50; ``modes`` says which). Wall time by the
     host clock around synchronized steps, device time and kernels by the
@@ -751,18 +852,144 @@ def phase_decode_step(cfg, params, name, *, kv_quant=None,
             rows = kernel_rows(prof, 5)
             busy = sum(r[0] for r in rows) if rows else None
             out[mode] = (wall, busy)
-            print(f"decode step Qwen2-0.5B{label} B={B} "
+            print(f"decode step {model}{label} B={B} "
                   f"L={bucket + NEW_TOKENS} bf16, {mode}: wall {wall:.3f} "
                   f"ms (host clock, "
                   f"synchronized), device {fmt_ms(busy)}"
                   + ("" if busy is None else
                      f", device idle {max(0.0, 1 - busy / wall):.1%}")
                   + f" [{name}]", flush=True)
-            for ms, calls, key in sorted(rows, reverse=True)[:10]:
+            for ms, calls, key in sorted(rows, reverse=True)[:top]:
                 print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{calls:<4d} "
                       f"{key[:90]}")
     return out
 
+
+
+# ------------------------------------------------------------ hybrid
+def scan_inputs(gen, B, S, W):
+    """a in (0.79, 0.99) and b of scale 0.1 (as tests/test_kernels.py
+    draws them), fp32 on the card; channel W // 3 of every row made the
+    identity step (a = 1, b = 0), whose h must stay exactly 0."""
+    a = torch.sigmoid(torch.randn(B, S, W, device="cuda", generator=gen))
+    a = a * 0.2 + 0.79
+    b = torch.randn(B, S, W, device="cuda", generator=gen) * 0.1
+    a[:, :, W // 3] = 1.0
+    b[:, :, W // 3] = 0.0
+    return a, b
+
+
+def scan_bound_ms(B, S, W):
+    """Least time for one scan: a and b read once and h written once
+    (fp32) over HBM; its 2 flops an element are far below that."""
+    t_bytes = 3 * B * S * W * 4 / HBM_BYTES_PER_S
+    t_ops = 2 * B * S * W / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_scan_parity(rs):
+    """K5 against its plain version at the hybrid's shapes (one short and
+    one longer prompt, the B=32 bucket-128 batch) and at a long S and a
+    ragged W, in fp32: within SCAN_TOL of the output's largest magnitude
+    (the kernel's fused multiply-add rounds once where the plain
+    version's product and sum round twice); the identity channel exactly
+    0. Returns (the error at SCAN_MAIN, settings checked)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    main_err, checked = None, 0
+    for B, S, W in ((1, 1, 4096), (1, 37, 4096), SCAN_MAIN, (4, 300, 256),
+                    (3, 100, 130)):
+        a, b = scan_inputs(gen, B, S, W)
+        out = rs.rglru_scan(a, b)
+        torch.cuda.synchronize()
+        ref = rs.rglru_scan_plain(a, b)
+        err = (out - ref).abs().max().item()
+        mag = ref.abs().max().item()
+        zero = bool((out[:, :, W // 3] == 0).all())
+        print(f"K5 B={B:<3d} S={S:<4d} W={W:<5d} max_abs_err {err:.3e} of "
+              f"max {mag:.3e} (tol {SCAN_TOL} relative), identity channel "
+              f"{'exact' if zero else 'WRONG'}", flush=True)
+        if not (err <= SCAN_TOL * mag and zero and out.dtype == torch.float32
+                and out.shape == a.shape):
+            raise AssertionError(f"K5 disagrees with its plain version: "
+                                 f"B={B} S={S} W={W}")
+        if (B, S, W) == SCAN_MAIN:
+            main_err = err
+        checked += 1
+    return main_err, checked
+
+
+def one_period(cfg, params):
+    """The first period of a stacked model: its config cut to one period
+    and a tree of views of period 0 (no copy)."""
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:1]
+    tree = {k: v for k, v in params.items() if k != "blocks"}
+    tree["blocks"] = first(params["blocks"])
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern)), tree
+
+
+def phase_scan_timings(rs, name):
+    """K5 by device time at SCAN_MAIN and at one short prompt, beside its
+    bound and plain version; no single PyTorch call computes a linear
+    recurrence, so it has no library time. Returns the main row (ms,
+    plain ms, bound ms, bound by)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    main = None
+    for B, S, W in ((1, 128, 4096), SCAN_MAIN):
+        a, b = scan_inputs(gen, B, S, W)
+
+        def k5():
+            return rs.rglru_scan(a, b)
+        t_k = device_ms(k5)
+        t_ev = cuda_ms(k5)
+        t_p = device_ms(lambda: rs.rglru_scan_plain(a, b), iters=5)
+        bound, by = scan_bound_ms(B, S, W)
+        print(f"timing K5 B={B} S={S} W={W} fp32, {B * W} threads, device "
+              f"time: kernel {fmt_ms(t_k)}, plain {fmt_ms(t_p)}, library "
+              f"none, bound {bound:.5f} ms ({by}); kernel by events over "
+              f"back-to-back calls {t_ev:.4f} ms [{name}]", flush=True)
+        if (B, S, W) == SCAN_MAIN:
+            main = (t_k if t_k is not None else t_ev, t_p, bound, by)
+    return main
+
+
+def phase_hybrid_k1_timing(fa, attn_block_sizes, name):
+    """K1 at the hybrid's prefill (B=32, S=128, 16 query heads over one kv
+    head of 256, bf16, causal, window 2048) by device time, beside its
+    bound, plain version and SDPA (causal, GQA). Returns (ms, plain ms,
+    sdpa ms, bound ms, bound by)."""
+    h = HYBRID_MAIN
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    q = randn(gen, h["B"], h["S"], h["Hq"], h["D"], dtype=torch.bfloat16)
+    k, v = (randn(gen, h["B"], h["S"], h["Hkv"], h["D"],
+                  dtype=torch.bfloat16) for _ in range(2))
+    bq = attn_block_sizes("prefill", h["S"], bh=h["B"] * h["Hq"],
+                          head_dim=h["D"])[0]
+    kw = dict(causal=True, window=HYBRID_WINDOW)
+
+    def k1():
+        return fa.flash_attention(q, k, v, bq=bq, **kw)
+    t_k = device_ms(k1)
+    t_ev = cuda_ms(k1)
+    t_p = device_ms(lambda: fa.flash_attention_plain(q, k, v, bq=bq, **kw),
+                    iters=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t_s = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    bound, by = attn_bound_ms(h["B"], h["S"], h["S"], h["Hq"], h["Hkv"],
+                              h["D"], 2, causal=True)
+    print(f"timing K1 hybrid prefill B={h['B']} S={h['S']} Hq={h['Hq']} "
+          f"Hkv={h['Hkv']} D={h['D']} bf16 causal bq={bq}, device time: "
+          f"kernel {fmt_ms(t_k)}, plain {fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}, "
+          f"bound {bound:.4f} ms ({by}); kernel by events over back-to-back "
+          f"calls {t_ev:.4f} ms [{name}]", flush=True)
+    return (t_k if t_k is not None else t_ev, t_p, t_s, bound, by)
 
 
 # --------------------------------------------------------- int8 serving
@@ -999,10 +1226,10 @@ def phase_matmul_timings(i8, matmul_tile, shapes, name):
     return rows
 
 
-def forward_profile(fn, label, name, n=5):
+def forward_profile(fn, label, name, n=5, top=8):
     """Wall time of ``fn`` (CUDA events around back-to-back calls), its
-    kernel time and device idle share by the profiler, and its costliest
-    kernels. Returns (wall ms, kernel ms)."""
+    kernel time and device idle share by the profiler, and its ``top``
+    costliest kernels. Returns (wall ms, kernel ms)."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         wall = cuda_ms(fn, iters=10)
@@ -1017,7 +1244,7 @@ def forward_profile(fn, label, name, n=5):
           + ("" if busy is None else
              f", device idle {max(0.0, 1 - busy / wall):.1%}")
           + f" [{name}]", flush=True)
-    for ms, calls, key in sorted(rows, reverse=True)[:8]:
+    for ms, calls, key in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{calls:<4d} {key[:90]}")
     return wall, busy
 
@@ -1039,8 +1266,9 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels.ops import attn_block_sizes, matmul_tile
-    from repro_torch.models import forward
+    from repro_torch.models import forward, init_params, make_caches
     from repro_torch.quant import params_bytes, quantize_params
     from repro_torch.serving import EngineConfig, ServingEngine
 
@@ -1060,7 +1288,8 @@ def main() -> int:
                     if "registers" in line or "spill" in line))
 
     # ---- 2. K1 against its plain version
-    main_err, checked = phase_kernel_parity(fa, attn_block_sizes)
+    main_err, checked = phase_kernel_parity(fa,
+                                            k1_settings(attn_block_sizes))
 
     # ---- 3. GECToR-base, full width, bf16: K1 forward vs plain attention
     cfg = get_config("gector-base")
@@ -1125,7 +1354,7 @@ def main() -> int:
                  sentences(rng, 21, 33, 64, cfg.vocab_size),
                  sentences(rng, 21, 65, 120, cfg.vocab_size)]
         kernels = (fa.flash_attention, da.decode_attention,
-                   i8.int8_matmul, i8.cache_matmul)
+                   i8.int8_matmul, i8.cache_matmul, rs.rglru_scan)
         reset_launches(kernels)
         results, sent = [], []
         for wave in waves:                 # one burst per bucket
@@ -1135,6 +1364,7 @@ def main() -> int:
         launches = fa.flash_attention.launches
         enc_k2_launches = da.decode_attention.launches
         enc_mm_launches = (i8.int8_matmul.launches, i8.cache_matmul.launches)
+        enc_k5_launches = rs.rglru_scan.launches
         served = eng.window()
         batch_sizes = list(eng.batch_sizes)   # the worker is idle now
     finally:
@@ -1146,8 +1376,8 @@ def main() -> int:
     if launches != cfg.n_layers * n_batches or launches == 0:
         raise AssertionError(f"K1 launched {launches} times for "
                              f"{n_batches} batches of {cfg.n_layers} layers")
-    if enc_mm_launches != (0, 0):
-        raise AssertionError("the float encoder launched K3 or K4")
+    if enc_mm_launches != (0, 0) or enc_k5_launches != 0:
+        raise AssertionError("the float encoder launched K3, K4 or K5")
     match = total = 0
     for s, row in zip(sent, results):
         bucket = row.shape[0]
@@ -1202,12 +1432,12 @@ def main() -> int:
     del params
 
     # ---- 6. K2 against its plain version
-    k2_err, k2_checked = phase_decode_parity(da)
+    k2_err, k2_checked = phase_decode_parity(da, k2_settings())
 
     # ---- 7. Qwen2-0.5B, full width, bf16: kernel path vs plain vs fp32
     qcfg = get_config("qwen2-0.5b")
     qparams = qwen2_params(qcfg, 0)
-    phase_qwen2_gates(qcfg, qparams)
+    phase_decoder_gates(qcfg, qparams, "Qwen2-0.5B")
 
     # ---- 8. the decoder engine, batch at a time: the port's second path
     dec_launches, dec_served, n_tok, wall, dec_batches, qfloat_bytes = \
@@ -1233,7 +1463,8 @@ def main() -> int:
 
     # ---- 12. Qwen2-0.5B, full width, bf16, int8 weights and KV
     qq = quantize_params(qparams)
-    phase_qwen2_gates(qcfg, qq, kv_quant="int8", label=" int8 W+KV")
+    phase_decoder_gates(qcfg, qq, "Qwen2-0.5B", kv_quant="int8",
+                        label=" int8 W+KV")
 
     # ---- 13. serve with int8 weights (and the int8 KV cache)
     enc8_launches, _, enc8_bytes = phase_encoder_int8_engine(
@@ -1275,14 +1506,76 @@ def main() -> int:
     phase_decode_step(qcfg, qparams, name, modes=(False,), label=" float")
     phase_decode_step(qcfg, qq, name, kv_quant="int8", modes=(False,),
                       label=" int8 W+KV")
+
+    # ---- 15. K5 against its plain version
+    k5_err, k5_checked = phase_scan_parity(rs)
+
+    # ---- 16. K1 and K2 at head dim 256 against their plain versions
+    k1h_err, k1h_checked = phase_kernel_parity(
+        fa, k1_settings_256(attn_block_sizes), main="hybrid prefill")
+    k2h_err, k2h_checked = phase_decode_parity(
+        da, k2_settings_256(), main="hybrid decode shape")
+
+    # ---- 17. RecurrentGemma-9B, full width, bf16: kernel path vs plain vs
+    # fp32, at one period (19 layers) so that the fp32 copy of its blocks
+    # (about 15 GB, beside the 4.2 GB fp32 embedding) fits beside the bf16
+    # model; the tree is a view of the full model's first period
+    hcfg = get_config("recurrentgemma-9b")
+    hparams = init_params(hcfg, 0, device="cuda")
+    h1cfg, h1params = one_period(hcfg, hparams)
+    phase_decoder_gates(h1cfg, h1params,
+                        f"RecurrentGemma-9B ({h1cfg.n_layers} layers)")
+    del h1params
+    torch.cuda.empty_cache()
+
+    # ---- 18. serve the hybrid at full depth (38 layers), batch at a time
+    hyb_launches, hyb_served, n_tokh, wallh, hyb_batches, hyb_bytes = \
+        phase_decoder_engine(hcfg, hparams, kernels,
+                             spans=((8, 120, 128),), wave=32,
+                             label=" RecurrentGemma-9B")
+
+    # ---- 19. timings: K5, K1/K2 at the hybrid's shapes, prefill and step
+    k5_times = phase_scan_timings(rs, name)
+    k1h_times = phase_hybrid_k1_timing(fa, attn_block_sizes, name)
+    k2h_times = phase_decode_timings(da, name, m=HYBRID_MAIN,
+                                     shapes=((1, 144), (32, 144)))
+    rng = np.random.default_rng(17)
+    _, htoks, _ = prompt_batch(rng, HYBRID_MAIN["B"], 8, 120,
+                               HYBRID_MAIN["S"], hcfg.vocab_size)
+    htt = torch.from_numpy(htoks).cuda()
+    hcaches = make_caches(hcfg, HYBRID_MAIN["B"], HYBRID_MAIN["L"],
+                          dtype=torch.float32, device="cuda")
+    forward_profile(lambda: forward(hcfg, hparams, tokens=htt,
+                                    caches=hcaches, return_hidden=True),
+                    f"RecurrentGemma-9B prefill B={HYBRID_MAIN['B']} "
+                    f"bucket {HYBRID_MAIN['S']} bf16, {hcfg.n_layers} "
+                    f"layers", name, top=14)
+    del hcaches
+    phase_decode_step(hcfg, hparams, name, modes=(False,),
+                      model="RecurrentGemma-9B", top=14)
+    print(f"RecurrentGemma-9B decoder burst: {hyb_served['requests']} "
+          f"requests in batches {hyb_batches}, {n_tokh} tokens in "
+          f"{wallh:.3f} s = {n_tokh / wallh:.1f} tokens/s, request p50 "
+          f"{hyb_served['latency_p50_s'] * 1e3:.3f} ms; weight_bytes "
+          f"{hyb_bytes:,} [{name}]", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
     k2_k, k2_p, k2_s, k2_bound, k2_by = k2_times
     k3_row, k4_row = mm_rows[MM_MAIN]
-    paths = {"encoder": launches, "decoder": dec_launches[0],
-             "encoder int8": enc8_launches[0],
-             "decoder int8": dec8_launches[0]}
+    k5_k, k5_p, k5_bound, k5_by = k5_times
+
+    def by_path(i, encoder):
+        return {"encoder": encoder, "decoder": dec_launches[i],
+                "encoder int8": enc8_launches[i],
+                "decoder int8": dec8_launches[i],
+                "decoder hybrid": hyb_launches[i]}
+
+    def hybrid_row(times, err, checked_256):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = times
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err, "settings_checked": checked_256}
     print(name)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -1291,7 +1584,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": main_err, "ms": t_k,
         "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
         "library_ms": t_s, "check": "ok", "settings_checked": checked,
-        "visits_checked": True, "launches_by_path": paths}, {
+        "visits_checked": True, "launches_by_path": by_path(0, launches),
+        "head_dim_256": hybrid_row(k1h_times, k1h_err, k1h_checked)}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:81",
@@ -1299,10 +1593,8 @@ def main() -> int:
         "plain_ms": k2_p, "bound_ms": k2_bound, "bound_by": k2_by,
         "library_ms": k2_s, "check": "ok", "settings_checked": k2_checked,
         "visits_checked": True,
-        "launches_by_path": {"encoder": enc_k2_launches,
-                             "decoder": dec_launches[1],
-                             "encoder int8": enc8_launches[1],
-                             "decoder int8": dec8_launches[1]}}, {
+        "launches_by_path": by_path(1, enc_k2_launches),
+        "head_dim_256": hybrid_row(k2h_times, k2h_err, k2h_checked)}, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:50",
@@ -1311,10 +1603,7 @@ def main() -> int:
         "bound_ms": k3_row[2], "bound_by": k3_row[3],
         "library_ms": k3_row[4], "check": "ok",
         "settings_checked": mm_checked // 2,
-        "launches_by_path": {"encoder": enc_mm_launches[0],
-                             "decoder": dec_launches[2],
-                             "encoder int8": enc8_launches[2],
-                             "decoder int8": dec8_launches[2]}}, {
+        "launches_by_path": by_path(2, enc_mm_launches[0])}, {
         "name": "cache_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/cache_matmul.py:43",
@@ -1323,10 +1612,14 @@ def main() -> int:
         "ms": k4_row[0], "plain_ms": k4_row[1], "bound_ms": k4_row[2],
         "bound_by": k4_row[3], "library_ms": k4_row[4], "check": "ok",
         "settings_checked": mm_checked // 2,
-        "launches_by_path": {"encoder": enc_mm_launches[1],
-                             "decoder": dec_launches[3],
-                             "encoder int8": enc8_launches[3],
-                             "decoder int8": dec8_launches[3]}}]}))
+        "launches_by_path": by_path(3, enc_mm_launches[1])}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:42",
+        "launches": hyb_launches[4], "max_abs_err": k5_err, "ms": k5_k,
+        "plain_ms": k5_p, "bound_ms": k5_bound, "bound_by": k5_by,
+        "library_ms": None, "check": "ok", "settings_checked": k5_checked,
+        "launches_by_path": by_path(4, enc_k5_launches)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,11 @@ transposes nothing: blocks stay stacked over a leading period axis under
 ``label_head``) bridges the same way, and so does a Qwen2 tree as it is:
 QKV biases ``bq``/``bk``/``bv`` as (h, hd), the gated MLP's fused gate|up
 ``w_in`` as (d, 2, d_ff), and no ``lm_head`` (the head is the tied fp32
-embedding table). A tree from the JAX ``quantize_params`` bridges as it
+embedding table). A RecurrentGemma tree bridges as it is too: one
+``blk{j}`` per pattern position (``blk0`` .. ``blk18``), an ``rglru``
+block's ``rglru`` subtree (``w_x``/``w_gate`` (d, w), ``w_out`` (w, d),
+``conv_w`` (4, w), the per-head ``gate_x``/``gate_a`` and ``a_param``)
+beside its ``norm2`` and ``mlp``. A tree from the JAX ``quantize_params`` bridges as it
 is too: each quantized leaf stays a ``{"qw": int8, "scale": fp32}`` dict,
 which the port's ``qeinsum`` reads. The caller converts the JAX arrays
 to numpy (``jax.tree.map(np.asarray, params)``); nothing here imports jax.

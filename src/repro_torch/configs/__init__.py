@@ -11,6 +11,7 @@ import importlib
 _MODULES = {
     "gector-base": "gector_base",
     "qwen2-0.5b": "qwen2_0_5b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

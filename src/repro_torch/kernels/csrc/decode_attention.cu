@@ -13,7 +13,8 @@
 // denominator l sums p unrounded) and the output is acc / max(l, 1e-30) in
 // q's type, as on the TPU.
 //
-// Design. One thread block of 128 threads per (b, kv head): the TPU's
+// Design. One thread block per (b, kv head), of 128 threads (256 at
+// D = 256): the TPU's
 // sequential kv grid axis becomes a loop over kv tiles of BK = 32 slots
 // inside the block. For each tile the first BK threads read the slots'
 // positions and the block decides with one __syncthreads_or whether any
@@ -26,11 +27,15 @@
 // float so that the 32 lanes of a warp, each scoring one slot against the
 // same query head, read distinct banks. Then one warp per query head takes
 // the tile's max and sum with shuffles and updates (m, l); and each thread
-// owns one output column d of one or two heads' accumulators (D = 128 or
-// 64) in registers and adds sum_j p_j v_j. Inputs are read in the
+// owns one output column d of one head's accumulators (D = 256 or 128; two
+// heads' at D = 64), for every query head of its group, in registers and
+// adds sum_j p_j v_j. The K, V and q tiles live in dynamic shared memory:
+// (32 * (D + 1) + 32 * D + 16 * D) * 4 bytes, 82 KB at D = 256, over the
+// 48 KB a static array may take, so the launch raises the kernel's dynamic
+// limit first. Inputs are read in the
 // (B, L, Hkv, D) layout through their strides, so the caller makes no
 // transpose, repeat or pad copies; the ragged last tile is masked here.
-// q and the cache may each be fp32 or bf16; D in {64, 128}; G <= 16.
+// q and the cache may each be fp32 or bf16; D in {64, 128, 256}; G <= 16.
 //
 // Bound. Decode attention reads the whole live cache once and does 4 flops
 // per cached element per query head of its group: at Qwen2-0.5B's serving
@@ -39,9 +44,12 @@
 // by memory by far. This first version issues plain loads with no copy
 // pipelining and its grid has only B * Hkv blocks (64 at B = 32, 2 at
 // B = 1, on 132 SMs), so it runs well above that bound (PERF.md has its
-// times). Splitting the ring over several blocks per (b, kv head)
-// (flash-decoding) would fill the card but changes the order of the
-// reduction; it is later work.
+// times). RecurrentGemma's local layers have one kv head, so there the grid
+// is B blocks: 32 at B = 32, a known limit (bound: the 16 query heads of
+// 256 and an fp32 ring of 144 slots at B = 32, 9.7 MB, 0.003 ms).
+// Splitting the ring over several blocks per (b, kv head) (flash-decoding)
+// would fill the card but changes the order of the reduction; it is later
+// work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,8 +58,17 @@
 namespace {
 
 constexpr int BK = 32;            // kv slots per tile (= one warp)
-constexpr int NT = 128;           // threads per block
 constexpr int MAXG = 16;          // query heads per kv head
+
+// threads per block: one output column each, for D <= 128 at least 128
+template <int D>
+__host__ __device__ constexpr int nthreads() { return D > 128 ? D : 128; }
+
+// the K, V and q tiles in dynamic shared memory, bytes
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return (BK * (D + 1) + BK * D + MAXG * D) * static_cast<int>(sizeof(float));
+}
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -96,12 +113,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(NT) decode_fwd(Params p) {
+__global__ void __launch_bounds__(nthreads<D>()) decode_fwd(Params p) {
+  constexpr int NT = nthreads<D>();
   constexpr int RPP = NT / D;              // heads per pass of the block
   constexpr int NACC = MAXG / RPP;         // accumulators per thread
-  __shared__ float Ks[BK][D + 1];
-  __shared__ float Vs[BK][D];
-  __shared__ float Qs[MAXG][D];
+  extern __shared__ float smem[];
+  float (*Ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
+  float (*Vs)[D] = reinterpret_cast<float (*)[D]>(smem + BK * (D + 1));
+  float (*Qs)[D] =
+      reinterpret_cast<float (*)[D]>(smem + BK * (D + 1) + BK * D);
   __shared__ float Ps[MAXG][BK];
   __shared__ float m_s[MAXG], l_s[MAXG], corr_s[MAXG];
   __shared__ int live_s[BK];
@@ -222,13 +242,27 @@ __global__ void __launch_bounds__(NT) decode_fwd(Params p) {
   if (tid == 0) p.visits[bh] = visits;
 }
 
+template <typename TQ, typename TKV, int D>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D>();
+  if (bytes > 48 * 1024) {
+    // once per kernel instance (thread-safe static initialisation)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        decode_fwd<TQ, TKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  decode_fwd<TQ, TKV, D><<<dim3(B * p.Hkv), nthreads<D>(), bytes, stream>>>(
+      p);
+  return 0;
+}
+
 template <typename TQ, typename TKV>
 int dispatch(const Params& p, int B, int D, cudaStream_t stream) {
-  const dim3 grid(B * p.Hkv);
-  if (D == 64) decode_fwd<TQ, TKV, 64><<<grid, NT, 0, stream>>>(p);
-  else if (D == 128) decode_fwd<TQ, TKV, 128><<<grid, NT, 0, stream>>>(p);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+  if (D == 64) return launch<TQ, TKV, 64>(p, B, stream);
+  if (D == 128) return launch<TQ, TKV, 128>(p, B, stream);
+  if (D == 256) return launch<TQ, TKV, 256>(p, B, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -10,21 +10,27 @@
 //
 // Design. One thread block per (b*Hq + h, q tile of BQ rows). The TPU's
 // sequential kv grid axis becomes the loop over kv tiles inside the block.
-// TPR = 4 neighbouring threads share one query row: each keeps a quarter of
-// the row's q and of its fp32 output accumulator in registers, as float4
-// chunks interleaved so that the four threads read neighbouring shared
-// memory words. K and V tiles (BK = 32 rows) are staged in shared memory as
-// fp32. A score is the four partial dot products summed with two warp
-// shuffles. The running max m, denominator l and accumulator stay in fp32;
-// p is rounded to the input type for the p @ v product and the output is
-// acc / max(l, 1e-30), as on the TPU. Masked scores are -1e30, not -inf, so
+// TPR neighbouring threads share one query row (4 for D = 64 and 128, 8 for
+// D = 256): each keeps 1/TPR of the row's q and of its fp32 output
+// accumulator in registers, as float4 chunks interleaved so that the TPR
+// threads read neighbouring shared memory words. At D = 256 four threads a
+// row would hold 64 q and 64 accumulator floats each beside the 32 scores
+// and spill; eight hold 32 and 32, for one more shuffle per score. K and V
+// tiles (BK = 32 rows) are staged in dynamic shared memory as fp32: 64 KB at
+// D = 256, over the 48 KB a static array may take, so the launch raises the
+// kernel's dynamic limit first. A score is the TPR partial dot products
+// summed with log2(TPR) warp shuffles. The running max m, denominator l
+// and accumulator stay in fp32; p is rounded to the input type for the
+// p @ v product and the output is acc / max(l, 1e-30), as on the TPU. Masked scores are -1e30, not -inf, so
 // the arithmetic on fully masked rows matches the TPU kernel and the plain
 // PyTorch version in flash_attention.py.
 //
 // Inputs are read in the (B, S, H, D) layout through their strides, so the
 // caller makes no transpose, reshape or pad copies; the ragged Sq and Skv
-// edges are masked here. fp32 and bf16 inputs, D in {64, 128}, BQ in
-// {32, 64}.
+// edges are masked here. fp32 and bf16 inputs, D in {64, 128, 256}, BQ in
+// {32, 64} for D <= 128 and 32 for D = 256: at BQ = 64 the D = 256 block
+// has 512 threads, which get at most 128 registers each, and ptxas spilled
+// (160 bytes a thread in bf16); at BQ = 32 it takes 183, with no spill.
 //
 // Bound. At the encoder's serving shape (B=32, S=128, 12 heads of 64, bf16)
 // q, k, v and o are 4 x 32*128*12*64*2 B = 25.2 MB: 7.5 us at 3.35 TB/s,
@@ -32,7 +38,11 @@
 // serving lengths the kernel is bound by memory. This first version does the
 // products on the CUDA cores in fp32 with no tensor cores and no copy
 // pipelining, so it runs well above that bound (PERF.md has its times);
-// mma/wgmma tiles and TMA-fed double buffering are the later step.
+// mma/wgmma tiles and TMA-fed double buffering are the later step. At
+// RecurrentGemma's local layers (B=32, S=128, 16 query heads and one kv head
+// of 256, bf16) the bytes are 2*32*128*16*256*2 + 2*32*128*256*2 B =
+// 71.3 MB, 0.021 ms, and the causal products 2.2 GFLOP, 0.002 ms: bound by
+// memory too.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,8 +51,17 @@
 namespace {
 
 constexpr int BK = 32;            // kv rows per tile
-constexpr int TPR = 4;            // threads per query row
 constexpr float kNegInf = -1e30f;
+
+// threads per query row
+template <int D>
+__host__ __device__ constexpr int tpr() { return D == 256 ? 8 : 4; }
+
+// the K and V tiles in dynamic shared memory, bytes
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return 2 * BK * D * static_cast<int>(sizeof(float));
+}
 
 struct Params {
   const void* q;
@@ -104,11 +123,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
 }
 
 template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(BQ * TPR) flash_fwd(Params p) {
+__global__ void __launch_bounds__(BQ * tpr<D>()) flash_fwd(Params p) {
+  constexpr int TPR = tpr<D>();
   constexpr int NT = BQ * TPR;             // threads per block
   constexpr int C = D / (4 * TPR);         // float4 chunks per thread
-  __shared__ __align__(16) float Ks[BK][D];
-  __shared__ __align__(16) float Vs[BK][D];
+  extern __shared__ __align__(16) float smem[];
+  float (*Ks)[D] = reinterpret_cast<float (*)[D]>(smem);
+  float (*Vs)[D] = reinterpret_cast<float (*)[D]>(smem + BK * D);
 
   const int tid = threadIdx.x;
   const int row = tid / TPR;
@@ -173,8 +194,9 @@ __global__ void __launch_bounds__(BQ * TPR) flash_fwd(Params p) {
         part += qv[c].x * kk.x + qv[c].y * kk.y + qv[c].z * kk.z +
                 qv[c].w * kk.w;
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
       float x = part * p.scale;
       if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
       const int kp = k0 + j;
@@ -230,19 +252,28 @@ __global__ void __launch_bounds__(BQ * TPR) flash_fwd(Params p) {
 }
 
 template <typename T, int D, int BQ>
-void launch(const Params& p, int B, cudaStream_t stream) {
+int launch(const Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D>();
+  if (bytes > 48 * 1024) {
+    // once per kernel instance (thread-safe static initialisation)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_fwd<T, D, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
   const dim3 grid(p.n_q, B * p.Hq);
-  flash_fwd<T, D, BQ><<<grid, BQ * TPR, 0, stream>>>(p);
+  flash_fwd<T, D, BQ><<<grid, BQ * tpr<D>(), bytes, stream>>>(p);
+  return 0;
 }
 
 template <typename T>
 int dispatch(const Params& p, int B, int D, int bq, cudaStream_t stream) {
-  if (D == 64 && bq == 32) launch<T, 64, 32>(p, B, stream);
-  else if (D == 64 && bq == 64) launch<T, 64, 64>(p, B, stream);
-  else if (D == 128 && bq == 32) launch<T, 128, 32>(p, B, stream);
-  else if (D == 128 && bq == 64) launch<T, 128, 64>(p, B, stream);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+  if (D == 64 && bq == 32) return launch<T, 64, 32>(p, B, stream);
+  if (D == 64 && bq == 64) return launch<T, 64, 64>(p, B, stream);
+  if (D == 128 && bq == 32) return launch<T, 128, 32>(p, B, stream);
+  if (D == 128 && bq == 64) return launch<T, 128, 64>(p, B, stream);
+  if (D == 256 && bq == 32) return launch<T, 256, 32>(p, B, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

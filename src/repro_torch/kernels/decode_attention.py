@@ -39,7 +39,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 BLOCK_K = 32                  # kv tile of the CUDA kernel (csrc: BK)
 MAX_G = 16                    # query heads per kv head (csrc: MAXG)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -30,7 +30,9 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 BLOCK_K = 32                  # kv tile of the CUDA kernel (csrc: BK)
 BLOCK_Q = (32, 64)            # q tiles the CUDA kernel is built for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
+# at head dim 256 only bq = 32: a 64-row tile's 512 threads spill
+BLOCK_Q_BY_HEAD_DIM = {64: BLOCK_Q, 128: BLOCK_Q, 256: (32,)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
@@ -169,9 +171,10 @@ def _check_cuda(q, k, v, bq, bk):
     D = q.shape[3]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    if bq not in BLOCK_Q or bk != BLOCK_K:
-        raise ValueError(f"tiles (bq={bq}, bk={bk}) not built: bq in "
-                         f"{BLOCK_Q}, bk == {BLOCK_K}")
+    if bq not in BLOCK_Q_BY_HEAD_DIM[D] or bk != BLOCK_K:
+        raise ValueError(f"tiles (bq={bq}, bk={bk}) not built at head dim "
+                         f"{D}: bq in {BLOCK_Q_BY_HEAD_DIM[D]}, bk == "
+                         f"{BLOCK_K}")
     align = 16 if q.dtype == torch.float32 else 8
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]):

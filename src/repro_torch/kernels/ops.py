@@ -1,36 +1,44 @@
 """Public wrappers around the kernels: tile-size choice and dispatch.
 
-``mha_prefill``, ``gqa_decode``, ``matmul_q8`` and ``matmul`` are the
-ports of the functions of those names in ``repro/kernels/ops.py``. The
-TPU wrappers transpose q/k/v to (B*H, S, D), repeat kv_pos per kv head and
-pad to whole tiles before the kernel; the Hopper kernels read (B, S, H, D),
-(B, L) and (M, K) through strides and mask the ragged edges themselves,
-so here the wrappers only pick the tiles.
+``mha_prefill``, ``gqa_decode``, ``matmul_q8``, ``matmul`` and
+``lru_scan`` are the ports of the functions of those names in
+``repro/kernels/ops.py``. The TPU wrappers transpose q/k/v to (B*H, S, D),
+repeat kv_pos per kv head and pad to whole tiles (or seq blocks) before
+the kernel; the Hopper kernels read (B, S, H, D), (B, L) and (M, K)
+through strides and mask the ragged edges themselves, so here the
+wrappers only pick the tiles.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import BLOCK_K as DECODE_BLOCK_K
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import BLOCK_K, flash_attention
+from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q,
+                                                 BLOCK_Q_BY_HEAD_DIM,
+                                                 flash_attention)
 from repro_torch.kernels.int8_matmul import (TILE_LARGE, TILE_SMALL,
                                              cache_matmul, int8_matmul,
                                              int8_matmul_plain)
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 
 H100_SMS = 132
 
 
-def attn_block_sizes(kind: str, sq: int, *, bh: int = 1):
+def attn_block_sizes(kind: str, sq: int, *, bh: int = 1,
+                     head_dim: int = 64):
     """(bq, bk) for the attention kernels on an H100.
 
     Prefill (K1): bk is the CUDA kernel's one kv tile (BLOCK_K = 32: small
-    enough that fp32 K and V tiles of head dim 128 fit 32 KB of shared
+    enough that fp32 K and V tiles of head dim 256 fit 64 KB of shared
     memory, and that a sliding window's live span stays within a few
     tiles). bq is 64 (256 threads a block) when that still gives every SM
     two blocks of the ``bh = B*Hq`` heads, else 32: short buckets waste
-    fewer padded query rows and small batches fill more SMs. Decode (K2):
-    bq is 1 and bk the kernel's kv tile of 32 slots, one warp wide, so a
-    short request in a long ring, or a window, pays only for its live
-    tiles; the kernel is built for that one tile. The heuristic is not
+    fewer padded query rows and small batches fill more SMs. bq is 64
+    only where K1 is built for that tile at ``head_dim``
+    (``BLOCK_Q_BY_HEAD_DIM``; at 256 it is not; a head dim K1 is not
+    built for runs only on the CPU, where the plain version takes both).
+    Decode (K2): bq is 1 and bk the kernel's kv tile of 32 slots, one
+    warp wide, so a short request in a long ring, or a window, pays only
+    for its live tiles; the kernel is built for that one tile. The heuristic is not
     yet tuned by measurement. (The TPU table also keys on skv and the
     window; here one kv tile serves every shape.)
     Attention of a chunk of queries over a cache (chunked prefill, ROADMAP
@@ -42,6 +50,8 @@ def attn_block_sizes(kind: str, sq: int, *, bh: int = 1):
             f"attention kind {kind!r}: chunked prefill over a cache is "
             f"ROADMAP Queue 1 item 7, speculative verify item 10")
     bq = 64 if sq > 32 and bh * -(-sq // 64) >= 2 * H100_SMS else 32
+    if bq not in BLOCK_Q_BY_HEAD_DIM.get(head_dim, BLOCK_Q):
+        bq = 32
     return bq, BLOCK_K
 
 
@@ -50,8 +60,8 @@ def mha_prefill(q, k, v, *, causal=True, window=None, softcap=None,
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D), at the
     tiles ``attn_block_sizes`` picks. ``kv_len`` (default Skv) masks kv
     columns at and beyond it."""
-    B, Sq, Hq, _ = q.shape
-    bq, bk = attn_block_sizes("prefill", Sq, bh=B * Hq)
+    B, Sq, Hq, D = q.shape
+    bq, bk = attn_block_sizes("prefill", Sq, bh=B * Hq, head_dim=D)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap, kv_len=kv_len, bq=bq, bk=bk)
 
@@ -98,3 +108,16 @@ def matmul_q8(x, qw, scale, *, plain: bool = False):
         return int8_matmul_plain(x, qw, scale).float()
     return int8_matmul(x, qw, scale,
                        tile=matmul_tile(x.shape[0], qw.shape[1])).float()
+
+
+def lru_scan(a, b, *, plain: bool = False):
+    """RG-LRU linear scan (K5): h_t = a_t * h_{t-1} + b_t from h = 0.
+    a, b: (B, S, W), cast to fp32 as the TPU wrapper casts them -> h
+    (B, S, W) fp32. The kernel takes any S: the TPU wrapper's identity
+    padding (a = 1, b = 0) to whole seq blocks is not needed. ``plain``
+    runs the plain version on any device: the reference path the card
+    check holds K5 against, as ``plain_attention`` is for K1/K2."""
+    a, b = a.float(), b.float()
+    if plain:
+        return rglru_scan_plain(a, b)
+    return rglru_scan(a, b)

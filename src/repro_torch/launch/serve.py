@@ -4,11 +4,13 @@ random requests and prints the engine's metrics.
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --max-new-tokens 16 --temperature 0.8
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-9b --smoke --device cpu
 
 ``gector-base`` serves sentences in encoder mode with its edit-tag head;
-``qwen2-0.5b`` serves prompts in decoder mode (batch at a time) through
-``generate()``, greedy or sampled at ``--temperature`` with per-request
-seeds. Runs on the card; ``--device cpu --smoke`` runs the small config on
+``qwen2-0.5b`` and ``recurrentgemma-9b`` serve prompts in decoder mode
+(batch at a time) through ``generate()``, greedy or sampled at
+``--temperature`` with per-request seeds. Runs on the card; ``--device cpu --smoke`` runs the small config on
 the CPU. Weights are random, drawn from ``--seed``.
 """
 from __future__ import annotations
@@ -67,7 +69,8 @@ def _serve_decoder(args, cfg, rng):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gector-base",
-                    choices=["gector-base", "qwen2-0.5b"])
+                    choices=["gector-base", "qwen2-0.5b",
+                             "recurrentgemma-9b"])
     ap.add_argument("--smoke", action="store_true",
                     help="the small same-family config")
     ap.add_argument("--device", default=None,
@@ -84,7 +87,7 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=args.smoke)
     rng = np.random.default_rng(args.seed)
-    if args.arch == "qwen2-0.5b":
+    if args.arch in ("qwen2-0.5b", "recurrentgemma-9b"):
         _serve_decoder(args, cfg, rng)
     else:
         _serve_encoder(args, cfg, rng)

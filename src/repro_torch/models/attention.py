@@ -96,19 +96,20 @@ def naive_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
 
 
 # ------------------------------------------------------------------ caches
-def make_cache(cfg, batch, max_len, *, dtype=torch.bfloat16,
+def make_cache(cfg, batch, max_len, *, window=None, dtype=torch.bfloat16,
                quantized=False, device=None):
-    """Allocate a KV cache of ``max_len`` slots on ``device`` (default:
-    the card): float ``dtype`` K/V, or with ``quantized`` int8 K/V and
-    zeroed fp32 scale planes ``k_scale``/``v_scale`` (B, L, Hkv). The
-    local layers' window-sized rings and the long-context cap belong to
-    the blocks not yet ported."""
+    """Allocate a KV cache on ``device`` (default: the card): ``max_len``
+    slots, or for a local layer (``window``) ``min(max_len, window)``, a
+    ring, as in JAX; float ``dtype`` K/V, or with ``quantized`` int8 K/V
+    and zeroed fp32 scale planes ``k_scale``/``v_scale`` (B, L, Hkv). The
+    global layers' long-context cap is not ported."""
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    L = max_len if window is None else min(max_len, window)
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim_)
     kv_dtype = torch.int8 if quantized else dtype
     cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
              "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
-             "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+             "pos": torch.full((batch, L), -1, dtype=torch.int32,
                                device=dev),
              "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if quantized:

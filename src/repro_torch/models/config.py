@@ -80,6 +80,9 @@ class ModelConfig:
     xlstm_proj_factor: float = 2.0
     # RG-LRU internals
     rglru_rnn_width: int = 0            # 0 -> d_model
+    # scale the token embedding by sqrt(d_model), rounded to the model
+    # dtype (the Gemma family; JAX keys this on the name's prefix)
+    embed_scale: bool = False
     vocab_pad_multiple: int = 256
     dtype: str = "bfloat16"
 

@@ -1,15 +1,20 @@
 """Stacked model: init, caches, forward, decode and sampling.
 
-Port of ``repro/models/transformer.py`` for the plain attention block
-(pattern ``("attn",)``): bidirectional (GECToR/BERT) or causal, with QKV
-bias, rotary embeddings, a gated MLP and tied embeddings (Qwen2). Modes
-``full`` (whole sequences, optionally filling caches) and ``decode`` (one
-step against the caches). Parameters and caches keep the JAX trees:
-stacked over a leading period axis under ``blocks/blk{j}``. The period
-stack is a Python loop over that axis (the JAX package scans it), and
+Port of ``repro/models/transformer.py`` for stacks of three blocks:
+``attn`` (global attention, bidirectional for GECToR/BERT or causal),
+``attn_local`` (causal sliding-window attention over a window-sized ring
+cache) and ``rglru`` (Griffin's recurrent block, ``models/rglru.py``),
+with QKV bias, rotary embeddings, a gated MLP and tied embeddings (Qwen2,
+RecurrentGemma). Modes ``full`` (whole sequences, optionally filling
+caches) and ``decode`` (one step against the caches). Parameters and
+caches keep the JAX trees: one ``blocks/blk{j}`` per pattern position,
+stacked over a leading period axis. The stack runs in JAX's order: for
+each pattern position j, every period of ``blk{j}`` (JAX scans each
+position over its periods); for a pattern of one position that is the
+plain layer order. The period loop is Python (JAX scans it), and
 ``decode_segment``'s scan over steps is a Python loop with no host sync
-inside: active rows, budgets and eos hits stay device tensors. Caches are
-written in place (JAX returns new arrays).
+inside: active rows, budgets and eos hits stay device tensors. Caches
+and recurrent states are written in place (JAX returns new arrays).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import threefry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, embed_apply, embed_init,
@@ -26,11 +32,16 @@ from repro_torch.models.layers import (apply_norm, embed_apply, embed_init,
                                        rope_angles)
 
 
+BLOCK_KINDS = ("attn", "attn_local", "rglru")
+
+
 def _check_supported(cfg: ModelConfig):
-    if (tuple(cfg.pattern) != ("attn",) or cfg.moe is not None
-            or cfg.post_norms or cfg.enc_layers or cfg.vis_tokens):
+    bad = sorted(set(cfg.pattern) - set(BLOCK_KINDS))
+    if (bad or cfg.moe is not None or cfg.post_norms or cfg.enc_layers
+            or cfg.vis_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only the plain 'attn' block stack is ported "
+            f"{cfg.name}: only stacks of {BLOCK_KINDS} blocks without MoE, "
+            f"post-norms, an encoder or a vision prefix are ported "
             f"(pattern={cfg.pattern!r}); the other blocks are ROADMAP "
             f"Queue 1 items 2 and 13")
     if cfg.fused_qkv:
@@ -38,7 +49,11 @@ def _check_supported(cfg: ModelConfig):
             f"{cfg.name}: the fused wqkv layout is ROADMAP Queue 1 item 2")
 
 
-def _block_init(cfg, gen, device):
+def _block_init(cfg, kind, gen, device):
+    if kind == "rglru":
+        return {"rglru": rglru_mod.rglru_init(cfg, gen),
+                "norm2": norm_init(cfg, device),
+                "mlp": mlp_init(cfg, gen)}
     return {"norm1": norm_init(cfg, device),
             "attn": attn_mod.attn_init(cfg, gen),
             "norm2": norm_init(cfg, device),
@@ -68,34 +83,58 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
                                              min(cfg.max_seq_len, 8192))
     if not cfg.tie_embeddings:
         params["lm_head"] = lm_head_init(cfg, gen)
-    params["blocks"] = {"blk0": _stack([_block_init(cfg, gen, dev)
-                                        for _ in range(cfg.n_periods)])}
+    params["blocks"] = {
+        f"blk{j}": _stack([_block_init(cfg, kind, gen, dev)
+                           for _ in range(cfg.n_periods)])
+        for j, kind in enumerate(cfg.pattern)}
     return params
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 dtype=torch.bfloat16, kv_quant=None, device=None):
-    """Decode caches stacked over periods, ``{"blk0": {k, v, pos, len}}``
-    with a leading (n_periods,) axis, on ``device`` (default: the card).
-    ``kv_quant="int8"`` allocates int8 K/V with their fp32 scale planes
-    ``k_scale``/``v_scale``."""
+    """Decode caches on ``device`` (default: the card), one tree per
+    pattern position stacked over periods (a leading (n_periods,) axis):
+    ``{k, v, pos, len}`` for an attention block, of ``max_len`` slots or,
+    for ``attn_local``, a ring of ``min(max_len, window)``;
+    ``{h, conv}`` fp32 zero states for an ``rglru`` block.
+    ``kv_quant="int8"`` gives the attention caches int8 K/V with their
+    fp32 scale planes ``k_scale``/``v_scale``."""
     _check_supported(cfg)
-    one = attn_mod.make_cache(cfg, batch, max_len, dtype=dtype,
-                              quantized=kv_quant == "int8", device=device)
-    return {"blk0": {k: t.expand(cfg.n_periods, *t.shape).clone()
-                     for k, t in one.items()}}
+    caches = {}
+    for j, kind in enumerate(cfg.pattern):
+        if kind == "rglru":
+            one = rglru_mod.rglru_state(cfg, batch, device=device)
+        else:
+            one = attn_mod.make_cache(
+                cfg, batch, max_len, dtype=dtype,
+                window=cfg.attn.window if kind == "attn_local" else None,
+                quantized=kv_quant == "int8", device=device)
+        caches[f"blk{j}"] = {k: t.expand(cfg.n_periods, *t.shape).clone()
+                             for k, t in one.items()}
+    return caches
 
 
-def _apply_block(cfg, p, x, positions, cache, *, mode, causal,
+def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                  plain_attention, plain_matmul, rope):
+    if kind == "rglru":
+        if mode == "decode":
+            delta, _ = rglru_mod.rglru_step(cfg, p["rglru"], x, cache)
+        else:
+            delta, _ = rglru_mod.rglru_apply(cfg, p["rglru"], x, cache,
+                                             plain_scan=plain_attention)
+        x = x + delta
+        h = apply_norm(cfg, p["norm2"], x)
+        return x + mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
+    window = cfg.attn.window if kind == "attn_local" else None
     h = apply_norm(cfg, p["norm1"], x)
     if mode == "decode":
         a, _ = attn_mod.attn_decode(cfg, p["attn"], h, positions, cache,
+                                    window=window,
                                     plain_attention=plain_attention,
                                     plain_matmul=plain_matmul, rope=rope)
     else:
         a, _ = attn_mod.attn_apply(cfg, p["attn"], h, positions,
-                                   causal=causal, cache=cache,
+                                   causal=causal, window=window, cache=cache,
                                    plain_attention=plain_attention,
                                    plain_matmul=plain_matmul, rope=rope)
     x = x + a
@@ -116,10 +155,13 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     against ``caches``. Caches are updated in place. Returns hidden
     states (B, S, d_model) in the model dtype with ``return_hidden``, else
     fp32 logits (B, S, padded_vocab); ``head_w`` is ``head_weight``'s
-    matrix when the caller cast it once. ``plain_attention`` swaps K1/K2
-    for ``naive_attention`` and ``plain_matmul`` K3 for its plain version
-    (the reference path). Parameters may be ``quantize_params``' tree:
-    its int8 projections go through K3."""
+    matrix when the caller cast it once. ``plain_attention`` swaps the
+    sequence-mixing kernels for their plain versions, K1/K2 for
+    ``naive_attention`` and K5 for the plain scan; ``plain_matmul`` swaps
+    K3 for its plain version (the reference path). Parameters may be
+    ``quantize_params``' tree: its int8 projections go through K3. With
+    ``cfg.embed_scale`` the embedding is scaled by sqrt(d_model), rounded
+    to the model dtype, as JAX does for the Gemma family."""
     if mode in ("chunk", "verify"):
         raise NotImplementedError(
             f"mode={mode!r}: chunked prefill is ROADMAP Queue 1 item 7, "
@@ -130,6 +172,10 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
         raise ValueError("mode='decode' needs caches and positions")
     _check_supported(cfg)
     x = embed_apply(cfg, params["embed"], tokens)
+    if cfg.embed_scale:
+        # JAX multiplies by the scale as an array of the model dtype; the
+        # host rounds it here, so no tensor is copied to the device
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.torch_dtype).item()
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -138,15 +184,16 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
         x = x + tbl[positions % tbl.shape[0]].to(cfg.torch_dtype)
     rope = (None if cfg.attn.rope_base is None else
             rope_angles(positions, cfg.head_dim_, cfg.attn.rope_base))
-    blk = params["blocks"]["blk0"]
-    cache_blk = caches["blk0"] if caches is not None else None
-    for i in range(cfg.n_periods):
-        cache = (None if cache_blk is None else
-                 {k: t[i] for k, t in cache_blk.items()})
-        x = _apply_block(cfg, _index_tree(blk, i), x, positions, cache,
-                         mode=mode, causal=causal,
-                         plain_attention=plain_attention,
-                         plain_matmul=plain_matmul, rope=rope)
+    for j, kind in enumerate(cfg.pattern):     # JAX's order: see the top
+        blk = params["blocks"][f"blk{j}"]
+        cache_blk = caches[f"blk{j}"] if caches is not None else None
+        for i in range(cfg.n_periods):
+            cache = (None if cache_blk is None else
+                     {k: t[i] for k, t in cache_blk.items()})
+            x = _apply_block(cfg, kind, _index_tree(blk, i), x, positions,
+                             cache, mode=mode, causal=causal,
+                             plain_attention=plain_attention,
+                             plain_matmul=plain_matmul, rope=rope)
     x = apply_norm(cfg, params["final_norm"], x)
     if return_hidden:
         return x
@@ -212,9 +259,11 @@ def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
 
     tokens (B, 1): the token each row just generated; positions (B, 1):
     the absolute position it occupies (its KV is written there). active
-    (B,) bool: rows that decode (inactive rows rewrite their frozen
-    (token, position) KV slot each step, which in place stays
-    idempotent). budget (B,) int: tokens the row may still emit. eos_id
+    (B,) bool: rows that decode. An inactive row still runs each step on
+    its frozen (token, position): it rewrites that KV slot, which in place
+    stays idempotent, but its recurrent states (``rglru`` blocks) advance,
+    as in JAX; batch-at-a-time serving never resumes such a row, so no
+    output changes. budget (B,) int: tokens the row may still emit. eos_id
     (B,) int: per-row stop token, -1 disables. temperature / top_k / seed:
     per-row sampling, see ``sample_logits``. A row stops emitting the step
     after it emits its eos token or exhausts its budget.

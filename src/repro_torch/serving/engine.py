@@ -23,8 +23,12 @@ saturated, parks the request on a priority-ordered overflow queue; a
 finishing request hands its slot to the best parked one. With
 ``weight_quant="int8"`` the engine quantizes the tree once at init and
 every projection runs K3; with ``kv_quant="int8"`` (decoder mode) the
-caches hold int8 K/V with fp32 scale planes. The KV pool and the
-continuous scheduler are not ported yet and raise.
+caches hold int8 K/V with fp32 scale planes; both for the plain
+``("attn",)`` stack only. The decoder serves the RecurrentGemma hybrid
+too: its caches hold local-attention rings of ``min(bucket +
+max_new_tokens, window)`` slots and the RG-LRU blocks' recurrent states,
+and its prefill runs the scan through K5. The KV pool and the continuous
+scheduler are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -172,6 +176,12 @@ class ServingEngine:
         (``quantize_params``); otherwise the engine keeps the caller's
         leaves."""
         _check_config(engine_cfg)
+        if ((engine_cfg.weight_quant or engine_cfg.kv_quant)
+                and tuple(cfg.pattern) != ("attn",)):
+            raise NotImplementedError(
+                f"{cfg.name}: int8 serving of a pattern other than "
+                f"('attn',) (pattern={cfg.pattern!r}: local-attention rings "
+                f"and float recurrent leaves) is ROADMAP Queue 1 item 15")
         self.device = resolve_device(device)      # guarded-by: init
         self.cfg = cfg                    # guarded-by: init
         self.params = _tree_map(          # guarded-by: init

@@ -31,6 +31,8 @@ def test_the_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/kernels/flash_attention.py" in names
     assert "src/repro_torch/serving/engine.py" in names
+    assert "src/repro_torch/kernels/rglru_scan.py" in names
+    assert "src/repro_torch/models/rglru.py" in names
     assert len(FILES) > 15
 
 
