@@ -3,11 +3,15 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; nothing is caught):
-  1. print the card, build every CUDA kernel from ``src/repro_torch``;
+  1. print the card, build every CUDA kernel from ``src/repro_torch``,
+     print each instantiation's registers, spills and static shared
+     memory from ptxas, and fail if a bf16 instantiation of K1 or K2
+     that the main paths pick spills;
   2. hold K1 (flash attention) against its plain PyTorch version in every
      setting the kernel supports and at the decoder prefill's own shapes
-     and tiles, fp32 and bf16, and its visit counts against
-     ``live_block_counts``;
+     and tiles, fp32 (the CUDA-core kernel) and bf16 (the tensor-core
+     kernel, at every q tile it is built for), each at the kernel's kv
+     tile, and its visit counts against ``live_block_counts``;
   3. GECToR-base at full width in bf16 (random weights from seed 0): the
      K1 forward against the plain-attention forward on a bucket-128 batch,
      and both against the same model in fp32, where K1's may be no worse
@@ -17,11 +21,14 @@ Phases (each raises on failure; nothing is caught):
      that every served batch launched K1 once per layer;
   5. time K1, its plain version and ``scaled_dot_product_attention`` (the
      yardstick; the port never calls it) by the profiler's device time,
-     time one serving batch's forward
+     at the encoder's shapes and Qwen2-0.5B's prefill, time one serving
+     batch's forward
      and break its device time down by kernel, report the serve latencies;
-  6. hold K2 (decode attention) against its plain version in every
-     setting, fp32, bf16 and a bf16 query over an fp32 cache, and its
-     visit counts against ``live_tile_counts``;
+  6. hold K2 (decode attention) against its plain version at the same
+     split count in every setting, fp32, bf16 and a bf16 query over an
+     fp32 cache, and at explicit split counts (splits with no live
+     tile, a wrapped ring, a window, a softcap, a ragged L, one split),
+     and its visit counts against ``live_tile_counts``;
   7. Qwen2-0.5B at full width in bf16 (random weights from seed 0): a
      B=32 bucket-128 batch prefilled (K1) and decoded 15 teacher-forced
      steps (K2), against the plain-attention path and both against the
@@ -33,8 +40,9 @@ Phases (each raises on failure; nothing is caught):
      tokens against a direct prefill + ``decode_segment`` call on the same
      padded batch, the finish reasons, and that each batch launched K1
      once per layer and K2 once per layer and decode step;
-  9. time K2, its plain version and SDPA by device time, one decode step
-     and its kernels, and the decoder burst;
+  9. time K2 (both launches: the split pass and the merge), its plain
+     version and SDPA by device time, one decode step and its kernels,
+     and the decoder burst;
  10. hold K3 (the dequant-fused int8 matmul) and K4 (the tiled matmul)
      against their plain versions at every (K, N) of both models'
      projections for M = 1, 32 and 4096 and at ragged shapes, fp32 and
@@ -78,7 +86,8 @@ Phases (each raises on failure; nothing is caught):
      prefill and one decode step broken down by kernel with the device's
      idle share, and the hybrid's ``weight_bytes``.
 
-Prints a ``{"kernels": [...]}`` line, then as the last line
+Prints a ``{"kernels": [...]}`` line (each kernel with its design and
+its instantiations' registers), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the repository's ``src/`` is not beside this file.
 """
@@ -86,6 +95,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -184,6 +195,36 @@ def fmt_ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
+def ptxas_table(log):
+    """Per compiled kernel instantiation, from ``nvcc -Xptxas -v``:
+    {demangled name: (registers, spill store bytes, spill load bytes,
+    stack frame bytes, static shared memory bytes)}."""
+    rows, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rows[name] = [0, 0, 0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            rows[name][1:4] = (int(m.group(2)), int(m.group(3)),
+                               int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows[name][0] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows[name][4] = int(sm.group(1)) if sm else 0
+    names = list(rows)
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        names = out.splitlines() if len(out.splitlines()) == len(rows) \
+            else names
+    return {n: tuple(v) for n, v in zip(names, rows.values())}
+
+
 def attn_bound_ms(B, Sq, Skv, Hq, Hkv, D, itemsize, causal=False):
     """Least time for one attention call: each input read once and the
     output written once over HBM, or the scored products at the bf16
@@ -206,7 +247,8 @@ def k1_settings(attn_block_sizes):
     bucket 128 (phases 7 and 9) and B=16 in buckets 32, 64 and 128 (the
     engine's batches in phase 8)."""
     def prefill_bq(B, S):
-        return attn_block_sizes("prefill", S, bh=B * DECODE_MAIN["Hq"])[0]
+        return attn_block_sizes("prefill", S, bh=B * DECODE_MAIN["Hq"],
+                                dtype=torch.bfloat16)[0]
     decoder = [(f"decoder prefill B={B} S={S}", B, S, S, DECODE_MAIN["Hq"],
                 DECODE_MAIN["Hkv"], DECODE_MAIN["D"], prefill_bq(B, S),
                 dict(causal=True, kv_len=S))
@@ -241,7 +283,7 @@ def k1_settings_256(attn_block_sizes):
     causal with the local window of 2048) at the bq the model takes."""
     h = HYBRID_MAIN
     bq = attn_block_sizes("prefill", h["S"], bh=h["B"] * h["Hq"],
-                          head_dim=h["D"])[0]
+                          head_dim=h["D"], dtype=torch.bfloat16)[0]
     return [  # (name, B, Sq, Skv, Hq, Hkv, D, bq, kwargs)
         ("D=256 non-causal kv_len<Skv", 2, 160, 160, 4, 4, 256, 32,
          dict(causal=False, kv_len=131)),
@@ -263,41 +305,48 @@ def k1_settings_256(attn_block_sizes):
 
 
 def phase_kernel_parity(fa, settings, main="main shape"):
-    """K1 against its plain version in each of ``settings``; returns the
-    bf16 error of the setting named ``main`` and the settings checked."""
+    """K1 against its plain version in each of ``settings`` at the kv tile
+    the kernel has for the dtype and head dim: fp32 at the setting's bq
+    (32 where fp32 is not built for it), bf16 at every bq the kernel is
+    built for (every tile ``attn_block_sizes`` can pick). Returns the
+    bf16 error of the setting named ``main`` at its own bq and the
+    settings checked."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     main_err, checked = None, 0
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for name, B, Sq, Skv, Hq, Hkv, D, bq, kw in settings:
+        for name, B, Sq, Skv, Hq, Hkv, D, bq0, kw in settings:
             q = randn(gen, B, Sq, Hq, D, dtype=dtype)
             k = randn(gen, B, Skv, Hkv, D, dtype=dtype)
             v = randn(gen, B, Skv, Hkv, D, dtype=dtype)
-            out, visits = fa.flash_attention(q, k, v, bq=bq,
-                                             return_visits=True, **kw)
-            torch.cuda.synchronize()
-            ref, ref_visits = fa.flash_attention_plain(
-                q.float(), k.float(), v.float(), bq=bq, **kw)
-            err = (out.float() - ref).abs().max().item()
-            close = torch.allclose(out.float(), ref, atol=tol,
-                                   rtol=0.0 if dtype == torch.float32
-                                   else tol)
-            want = torch.tensor(fa.live_block_counts(
-                Sq, Skv, causal=kw.get("causal", True),
-                window=kw.get("window"), bq=bq, bk=fa.BLOCK_K,
-                kv_len=kw.get("kv_len")), dtype=torch.int32)
-            vis_ok = bool((visits.cpu() == want).all()) and \
-                bool((visits == ref_visits).all())
-            print(f"K1 {name:28s} bq={bq:<3d} {str(dtype):15s} "
-                  f"max_abs_err {err:.3e} "
-                  f"(tol {tol}) visits {'ok' if vis_ok else 'WRONG'}",
-                  flush=True)
-            if not (close and vis_ok):
-                raise AssertionError(f"K1 disagrees with its plain version: "
-                                     f"{name} {dtype}")
-            checked += 1
-            if name == main and dtype == torch.bfloat16:
-                main_err = err
+            bqs, bk = fa.TILES[(dtype, D)]
+            fp32_bq = bq0 if bq0 in bqs else bqs[0]
+            for bq in (bqs if dtype == torch.bfloat16 else (fp32_bq,)):
+                out, visits = fa.flash_attention(q, k, v, bq=bq,
+                                                 return_visits=True, **kw)
+                torch.cuda.synchronize()
+                ref, ref_visits = fa.flash_attention_plain(
+                    q.float(), k.float(), v.float(), bq=bq, bk=bk, **kw)
+                err = (out.float() - ref).abs().max().item()
+                close = torch.allclose(out.float(), ref, atol=tol,
+                                       rtol=0.0 if dtype == torch.float32
+                                       else tol)
+                want = torch.tensor(fa.live_block_counts(
+                    Sq, Skv, causal=kw.get("causal", True),
+                    window=kw.get("window"), bq=bq, bk=bk,
+                    kv_len=kw.get("kv_len")), dtype=torch.int32)
+                vis_ok = bool((visits.cpu() == want).all()) and \
+                    bool((visits == ref_visits).all())
+                print(f"K1 {name:28s} bq={bq:<3d} bk={bk:<3d} "
+                      f"{str(dtype):15s} max_abs_err {err:.3e} "
+                      f"(tol {tol}) visits {'ok' if vis_ok else 'WRONG'}",
+                      flush=True)
+                if not (close and vis_ok):
+                    raise AssertionError(f"K1 disagrees with its plain "
+                                         f"version: {name} {dtype} bq={bq}")
+                checked += 1
+                if name == main and dtype == torch.bfloat16 and bq == bq0:
+                    main_err = err
     return main_err, checked
 
 
@@ -411,6 +460,29 @@ def k2_settings():
         ("ragged L=157", 5, 157, 14, 2, 64, "ring", {}),
         ("main decode shape", m["B"], m["L"], m["Hq"], m["Hkv"], m["D"],
          "full", {}),
+        *k2_split_settings(64, 14, 2),
+    ]
+
+
+def k2_split_settings(D, Hq, Hkv):
+    """K2 at explicit split counts: splits with no live tile (a short
+    prefix in a long ring, and 5 splits of 2 tiles), a wrapped ring, a
+    window, a softcap, a ragged L, and one split (the single-pass
+    order)."""
+    return [  # (name, B, L, Hq, Hkv, D, kv_pos pattern, kwargs)
+        (f"D={D} split 2 dead split", 4, 1024, Hq, Hkv, D, "prefix",
+         dict(n_split=2)),
+        (f"D={D} split 5 dead splits", 3, 300, Hq, Hkv, D, "prefix",
+         dict(n_split=5)),
+        (f"D={D} split 3 wrapped ring", 4, 160, Hq, Hkv, D, "ring",
+         dict(n_split=3)),
+        (f"D={D} split 5 window 64", 4, 512, Hq, Hkv, D, "ring",
+         dict(window=64, n_split=5)),
+        (f"D={D} split 2 softcap 50", 4, 192, Hq, Hkv, D, "full",
+         dict(softcap=50.0, n_split=2)),
+        (f"D={D} split 3 ragged L=157", 5, 157, Hq, Hkv, D, "ring",
+         dict(n_split=3)),
+        (f"D={D} split 1", 4, 144, Hq, Hkv, D, "holes", dict(n_split=1)),
     ]
 
 
@@ -434,6 +506,7 @@ def k2_settings_256():
         ("D=256 ragged L=157", 5, 157, 16, 1, 256, "ring", {}),
         ("hybrid decode shape", h["B"], h["L"], h["Hq"], h["Hkv"], h["D"],
          "full", dict(window=HYBRID_WINDOW)),
+        *k2_split_settings(256, 16, 1),
     ]
 
 
@@ -459,9 +532,11 @@ def phase_decode_parity(da, settings, main="main decode shape"):
             out, visits = da.decode_attention(q, k, v, qp, kvp,
                                               return_visits=True, **kw)
             torch.cuda.synchronize()
+            # the plain version at the kernel's split count
+            n_split = kw.get("n_split") or da.decode_splits(B, Hkv, L)[0]
             ref, ref_visits = da.decode_attention_plain(
                 q.float(), k.to(q_dt).float(), v.to(q_dt).float(), qp, kvp,
-                **kw)
+                **{**kw, "n_split": n_split})
             err = (out.float() - ref).abs().max().item()
             close = torch.allclose(out.float(), ref, atol=tol,
                                    rtol=0.0 if q_dt == torch.float32
@@ -472,7 +547,8 @@ def phase_decode_parity(da, settings, main="main decode shape"):
             vis_ok = bool((visits.cpu().numpy() == want).all()) and \
                 bool((visits == ref_visits).all())
             label = f"q {str(q_dt)[6:]} cache {str(kv_dt)[6:]}"
-            print(f"K2 {name:26s} {label:26s} max_abs_err {err:.3e} "
+            print(f"K2 {name:28s} {label:26s} splits {n_split:<3d} "
+                  f"max_abs_err {err:.3e} "
                   f"(tol {tol}) visits {'ok' if vis_ok else 'WRONG'} "
                   f"({int(want.sum())} of {B * Hkv * -(-L // da.BLOCK_K)} "
                   f"tiles)", flush=True)
@@ -786,8 +862,10 @@ def phase_decode_timings(da, name, m=DECODE_MAIN,
         t_s = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                      enable_gqa=True))
         bound, by = decode_bound_ms(q_pos, kv_pos, Hq, Hkv, D, 2, 4)
+        n_split = da.decode_splits(B, Hkv, L)[0]
         print(f"timing K2 B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} bf16 q "
-              f"fp32 cache, grid {B * Hkv} blocks, device time: kernel "
+              f"fp32 cache, grid {B * Hkv} x {n_split} splits and a merge, "
+              f"device time (both launches): kernel "
               f"{fmt_ms(t_k)}, plain {fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}, "
               f"bound {bound:.5f} ms ({by}); kernel by events over "
               f"back-to-back calls {t_ev:.4f} ms [{name}]", flush=True)
@@ -958,6 +1036,44 @@ def phase_scan_timings(rs, name):
     return main
 
 
+def phase_qwen2_k1_timing(fa, attn_block_sizes, name):
+    """K1 at Qwen2-0.5B's prefill (B=32, S=128, 14 query heads over 2 kv
+    heads of 64, bf16, causal) by device time, beside its bound, plain
+    version and SDPA (causal, GQA). Returns (ms, plain ms, sdpa ms, bound
+    ms, bound by)."""
+    m = DECODE_MAIN
+    B, S = m["B"], 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(34)
+    q = randn(gen, B, S, m["Hq"], m["D"], dtype=torch.bfloat16)
+    k, v = (randn(gen, B, S, m["Hkv"], m["D"], dtype=torch.bfloat16)
+            for _ in range(2))
+    bq = attn_block_sizes("prefill", S, bh=B * m["Hq"], head_dim=m["D"],
+                          dtype=torch.bfloat16)[0]
+
+    def k1():
+        return fa.flash_attention(q, k, v, bq=bq, causal=True)
+    t_k = device_ms(k1)
+    t_ev = cuda_ms(k1)
+    t_p = device_ms(lambda: fa.flash_attention_plain(q, k, v, bq=bq,
+                                                     causal=True), iters=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    t_s = device_ms(sdpa)
+    bound, by = attn_bound_ms(B, S, S, m["Hq"], m["Hkv"], m["D"], 2,
+                              causal=True)
+    print(f"timing K1 Qwen2 prefill B={B} S={S} Hq={m['Hq']} "
+          f"Hkv={m['Hkv']} D={m['D']} bf16 causal bq={bq}, device time: "
+          f"kernel {fmt_ms(t_k)}, plain {fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}, "
+          f"bound {bound:.4f} ms ({by}); by events over back-to-back calls "
+          f"kernel {t_ev:.4f} ms, sdpa {cuda_ms(sdpa):.4f} ms [{name}]",
+          flush=True)
+    return (t_k if t_k is not None else t_ev, t_p, t_s, bound, by)
+
+
 def phase_hybrid_k1_timing(fa, attn_block_sizes, name):
     """K1 at the hybrid's prefill (B=32, S=128, 16 query heads over one kv
     head of 256, bf16, causal, window 2048) by device time, beside its
@@ -970,7 +1086,7 @@ def phase_hybrid_k1_timing(fa, attn_block_sizes, name):
     k, v = (randn(gen, h["B"], h["S"], h["Hkv"], h["D"],
                   dtype=torch.bfloat16) for _ in range(2))
     bq = attn_block_sizes("prefill", h["S"], bh=h["B"] * h["Hq"],
-                          head_dim=h["D"])[0]
+                          head_dim=h["D"], dtype=torch.bfloat16)[0]
     kw = dict(causal=True, window=HYBRID_WINDOW)
 
     def k1():
@@ -1283,9 +1399,23 @@ def main() -> int:
     built = build.build_all()
     for k, b in built.items():
         print(f"built {k} in {b.seconds:.1f} s -> {b.path.name}", flush=True)
-    nvcc_log = "\n".join(b.log for b in built.values())
-    print("\n".join(line for line in nvcc_log.splitlines()
-                    if "registers" in line or "spill" in line))
+    ptxas = {k: ptxas_table(b.log) for k, b in built.items()}
+    for k, rows in ptxas.items():
+        for inst, (regs, st, ld, stack, smem) in rows.items():
+            print(f"ptxas {k}: {inst[:100]}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads, {stack} bytes "
+                  f"stack, {smem} bytes static smem", flush=True)
+    # the bf16 instantiations the main paths pick must not spill
+    main_insts = {n: r for k in ("flash_attention", "decode_attention")
+                  for n, r in ptxas[k].items()
+                  if any(t in n for t in (
+                      "flash_fwd_bf16", "decode_merge",
+                      "decode_split<__nv_bfloat16",       # demangled
+                      "decode_splitI13__nv_bfloat16"))}   # mangled
+    spilled = {n: r for n, r in main_insts.items() if r[1] or r[2]}
+    if not main_insts or spilled:
+        raise AssertionError(f"main-path bf16 instantiations spill (or none "
+                             f"was found in the build log): {spilled}")
 
     # ---- 2. K1 against its plain version
     main_err, checked = phase_kernel_parity(fa,
@@ -1400,7 +1530,8 @@ def main() -> int:
             H, D = MAIN["H"], MAIN["D"]
             q, k, v = (randn(gen, B, S, H, D, dtype=torch.bfloat16)
                        for _ in range(3))
-            bq, _ = attn_block_sizes("prefill", S, bh=B * H)
+            bq, _ = attn_block_sizes("prefill", S, bh=B * H,
+                                     dtype=torch.bfloat16)
 
             def k1():
                 return fa.flash_attention(q, k, v, causal=False, bq=bq)
@@ -1419,6 +1550,7 @@ def main() -> int:
             if (B, S) == (MAIN["B"], MAIN["S"]):
                 main_times = (t_k if t_k is not None else t_host, t_p, t_s,
                               bound, by)
+    k1q_times = phase_qwen2_k1_timing(fa, attn_block_sizes, name)
     phase_breakdown(
         lambda: forward(cfg, params["encoder"], tokens=tt, causal=False,
                         return_hidden=True),
@@ -1571,11 +1703,16 @@ def main() -> int:
                 "decoder int8": dec8_launches[i],
                 "decoder hybrid": hyb_launches[i]}
 
-    def hybrid_row(times, err, checked_256):
+    def hybrid_row(times, err=None, checked_256=None):
         ms, plain_ms, lib_ms, bound_ms, bound_by = times
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "max_abs_err": err, "settings_checked": checked_256}
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if err is not None:
+            row.update(max_abs_err=err, settings_checked=checked_256)
+        return row
+
+    def registers(source):
+        return {n: r[0] for n, r in ptxas[source].items()}
     print(name)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -1585,6 +1722,12 @@ def main() -> int:
         "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
         "library_ms": t_s, "check": "ok", "settings_checked": checked,
         "visits_checked": True, "launches_by_path": by_path(0, launches),
+        "design": "bf16: mma.sync m16n8k16 tensor cores, 16 query rows a "
+                  "warp, ldmatrix, bf16 K/V tiles double-buffered by "
+                  "cp.async (bk 64, 32 at D=256); fp32: CUDA-core FMAs, "
+                  "bk 32",
+        "registers": registers("flash_attention"),
+        "qwen2_prefill": hybrid_row(k1q_times),
         "head_dim_256": hybrid_row(k1h_times, k1h_err, k1h_checked)}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1594,6 +1737,11 @@ def main() -> int:
         "library_ms": k2_s, "check": "ok", "settings_checked": k2_checked,
         "visits_checked": True,
         "launches_by_path": by_path(1, enc_k2_launches),
+        "design": "split-KV: (B*Hkv, n_split) blocks over 32-slot tiles, "
+                  "cp.async of the raw cache type one tile ahead, warp "
+                  "partial dots and a transposing shuffle reduction, then "
+                  "a merge launch",
+        "registers": registers("decode_attention"),
         "head_dim_256": hybrid_row(k2h_times, k2h_err, k2h_checked)}, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
@@ -1603,7 +1751,10 @@ def main() -> int:
         "bound_ms": k3_row[2], "bound_by": k3_row[3],
         "library_ms": k3_row[4], "check": "ok",
         "settings_checked": mm_checked // 2,
-        "launches_by_path": by_path(2, enc_mm_launches[0])}, {
+        "launches_by_path": by_path(2, enc_mm_launches[0]),
+        "design": "int8 tile converted to bf16 in shared memory, mma.sync "
+                  "bf16 (fp32 FMAs for fp32 x), scale at the accumulator",
+        "registers": registers("int8_matmul")}, {
         "name": "cache_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/cache_matmul.py:43",
@@ -1612,14 +1763,19 @@ def main() -> int:
         "ms": k4_row[0], "plain_ms": k4_row[1], "bound_ms": k4_row[2],
         "bound_by": k4_row[3], "library_ms": k4_row[4], "check": "ok",
         "settings_checked": mm_checked // 2,
-        "launches_by_path": by_path(3, enc_mm_launches[1])}, {
+        "launches_by_path": by_path(3, enc_mm_launches[1]),
+        "design": "K3's source with a float weight and no scale",
+        "registers": registers("int8_matmul")}, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:42",
         "launches": hyb_launches[4], "max_abs_err": k5_err, "ms": k5_k,
         "plain_ms": k5_p, "bound_ms": k5_bound, "bound_by": k5_by,
         "library_ms": None, "check": "ok", "settings_checked": k5_checked,
-        "launches_by_path": by_path(4, enc_k5_launches)}]}))
+        "launches_by_path": by_path(4, enc_k5_launches),
+        "design": "one thread per (b, w) channel, h in a register, 8 steps "
+                  "of loads issued ahead",
+        "registers": registers("rglru_scan")}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,13 +28,30 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-BLOCK_K = 32                  # kv tile of the CUDA kernel (csrc: BK)
+BLOCK_K = 32                  # kv tile of the fp32 kernel (csrc: BK_F32)
 BLOCK_Q = (32, 64)            # q tiles the CUDA kernel is built for
 HEAD_DIMS = (64, 128, 256)
-# at head dim 256 only bq = 32: a 64-row tile's 512 threads spill
-BLOCK_Q_BY_HEAD_DIM = {64: BLOCK_Q, 128: BLOCK_Q, 256: (32,)}
+# (q tiles, kv tile) the CUDA kernel is built for, by (dtype, head dim).
+# fp32 runs on the CUDA cores with 32-row kv tiles, and at head dim 256
+# only bq = 32 (a 64-row tile's 512 threads spill). bf16 runs on the
+# tensor cores, 16 query rows a warp, with 64-row kv tiles, 32 at head
+# dim 256 (its scores then take 16 registers beside the 128 of the output
+# accumulators).
+TILES = {
+    **{(torch.float32, d): (BLOCK_Q, BLOCK_K) for d in (64, 128)},
+    (torch.float32, 256): ((32,), BLOCK_K),
+    **{(torch.bfloat16, d): (BLOCK_Q, 64) for d in (64, 128)},
+    (torch.bfloat16, 256): (BLOCK_Q, 32),
+}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+
+
+def kernel_tiles(dtype, head_dim):
+    """(q tiles, kv tile) of the CUDA kernel for ``dtype`` and
+    ``head_dim``; a pair it is not built for (it runs only on the CPU,
+    where the plain version takes any tile) gets ``(BLOCK_Q, BLOCK_K)``."""
+    return TILES.get((dtype, head_dim), (BLOCK_Q, BLOCK_K))
 
 
 def live_block_counts(sq, skv, *, causal, window, bq, bk, kv_len=None):
@@ -73,12 +90,15 @@ def _check(q, k, v, causal, window, softcap, kv_len, bq, bk):
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
-                          softcap=None, kv_len=None, bq=64, bk=BLOCK_K):
-    """The kernel's algorithm in PyTorch, tile by tile over kv.
+                          softcap=None, kv_len=None, bq=64, bk=None):
+    """The kernel's algorithm in PyTorch, tile by tile over kv (``bk``
+    rows, default the kernel's tile for q's dtype and head dim).
 
     Scores and the running (m, l, acc) are fp32; p is cast to v's type
     before the p @ v product, as on the TPU. Returns (out (B, Sq, Hq, D) in
     q's type, visits int32 (B*Hq, ceil(Sq/bq)))."""
+    if bk is None:
+        bk = kernel_tiles(q.dtype, q.shape[-1])[1]
     kv_len = _check(q, k, v, causal, window, softcap, kv_len, bq, bk)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -154,9 +174,11 @@ def _lib():
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, f,
                        *([ll] * 12), p]
         lib.flash_attention_block_k.restype = i
-        lib.flash_attention_block_k.argtypes = []
-        if lib.flash_attention_block_k() != BLOCK_K:
-            raise RuntimeError("csrc/flash_attention.cu BK != BLOCK_K")
+        lib.flash_attention_block_k.argtypes = [i, i]
+        for (dtype, d), (_, bk) in TILES.items():
+            if lib.flash_attention_block_k(_DTYPE_CODE[dtype], d) != bk:
+                raise RuntimeError(f"csrc/flash_attention.cu: the kv tile "
+                                   f"for ({dtype}, {d}) is not {bk}")
     return lib
 
 
@@ -171,18 +193,19 @@ def _check_cuda(q, k, v, bq, bk):
     D = q.shape[3]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    if bq not in BLOCK_Q_BY_HEAD_DIM[D] or bk != BLOCK_K:
+    bqs, tile_k = TILES[(q.dtype, D)]
+    if bq not in bqs or bk != tile_k:
         raise ValueError(f"tiles (bq={bq}, bk={bk}) not built at head dim "
-                         f"{D}: bq in {BLOCK_Q_BY_HEAD_DIM[D]}, bk == "
-                         f"{BLOCK_K}")
-    align = 16 if q.dtype == torch.float32 else 8
+                         f"{D} in {q.dtype}: bq in {bqs}, bk == {tile_k}")
+    # 16-byte rows: float4 loads (fp32), cp.async chunks (bf16)
+    per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]):
+        if t.stride(3) != 1 or any(s % per16 for s in t.stride()[:3]):
             raise ValueError(f"{name} needs a unit head-dim stride and "
-                             f"other strides that are multiples of 4, got "
-                             f"{t.stride()}")
-        if t.data_ptr() % align:
-            raise ValueError(f"{name} is not {align}-byte aligned")
+                             f"other strides that are multiples of "
+                             f"{per16}, got {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     if q.shape[0] * q.shape[2] > _MAX_GRID_Y:
         raise ValueError(f"B*Hq = {q.shape[0] * q.shape[2]} exceeds the "
                          f"grid limit {_MAX_GRID_Y}")
@@ -191,14 +214,18 @@ def _check_cuda(q, k, v, bq, bk):
 def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     kv_len: Optional[int] = None, bq: int = 64,
-                    bk: int = BLOCK_K, return_visits: bool = False):
+                    bk: Optional[int] = None, return_visits: bool = False):
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in q's
     type; with ``return_visits`` also the int32 (B*Hq, ceil(Sq/bq)) visit
     counts. ``kv_len`` (default Skv) masks the kv columns at and beyond it
-    (the causal mask does not hide them when causal=False).
+    (the causal mask does not hide them when causal=False). ``bk``
+    defaults to the kernel's kv tile for q's dtype and head dim
+    (``kernel_tiles``).
 
     A CPU tensor runs ``flash_attention_plain``. A CUDA tensor launches the
     kernel and adds one to ``flash_attention.launches``."""
+    if bk is None:
+        bk = kernel_tiles(q.dtype, q.shape[-1])[1]
     if q.device.type == "cpu":
         out, visits = flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap,

@@ -10,37 +10,36 @@ wrappers only pick the tiles.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.decode_attention import BLOCK_K as DECODE_BLOCK_K
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q,
-                                                 BLOCK_Q_BY_HEAD_DIM,
-                                                 flash_attention)
+from repro_torch.kernels.decode_attention import H100_SMS, decode_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 kernel_tiles)
 from repro_torch.kernels.int8_matmul import (TILE_LARGE, TILE_SMALL,
                                              cache_matmul, int8_matmul,
                                              int8_matmul_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 
-H100_SMS = 132
-
 
 def attn_block_sizes(kind: str, sq: int, *, bh: int = 1,
-                     head_dim: int = 64):
+                     head_dim: int = 64, dtype=torch.float32):
     """(bq, bk) for the attention kernels on an H100.
 
-    Prefill (K1): bk is the CUDA kernel's one kv tile (BLOCK_K = 32: small
-    enough that fp32 K and V tiles of head dim 256 fit 64 KB of shared
-    memory, and that a sliding window's live span stays within a few
-    tiles). bq is 64 (256 threads a block) when that still gives every SM
-    two blocks of the ``bh = B*Hq`` heads, else 32: short buckets waste
-    fewer padded query rows and small batches fill more SMs. bq is 64
-    only where K1 is built for that tile at ``head_dim``
-    (``BLOCK_Q_BY_HEAD_DIM``; at 256 it is not; a head dim K1 is not
-    built for runs only on the CPU, where the plain version takes both).
-    Decode (K2): bq is 1 and bk the kernel's kv tile of 32 slots, one
-    warp wide, so a short request in a long ring, or a window, pays only
-    for its live tiles; the kernel is built for that one tile. The heuristic is not
-    yet tuned by measurement. (The TPU table also keys on skv and the
-    window; here one kv tile serves every shape.)
+    Prefill (K1): bk is the kernel's kv tile for ``dtype`` and
+    ``head_dim`` (``flash_attention.kernel_tiles``): 32 rows in fp32 (the
+    CUDA-core kernel, whose fp32 K and V tiles of head dim 256 fit 64 KB
+    of shared memory), 64 in bf16 (the tensor-core kernel), 32 there at
+    head dim 256. bq is the largest q tile K1 is built for (32, and 64
+    except in fp32 at head dim 256) that still gives every SM two blocks
+    of the ``bh = B*Hq`` heads and is not mostly padding for ``sq``,
+    else 32: short buckets waste fewer padded query rows and small
+    batches fill more SMs. (A pair K1 is not built for runs only on the
+    CPU, where the plain version takes any tile.) Decode (K2): bq is 1 and bk the kernel's kv tile of 32 slots,
+    one warp wide, so a short request in a long ring, or a window, pays
+    only for its live tiles; the kernel is built for that one tile. The
+    heuristic is not yet tuned by measurement. (The TPU table also keys
+    on skv and the window.)
     Attention of a chunk of queries over a cache (chunked prefill, ROADMAP
     Queue 1 item 7) has no kernel yet."""
     if kind == "decode":
@@ -49,10 +48,10 @@ def attn_block_sizes(kind: str, sq: int, *, bh: int = 1,
         raise NotImplementedError(
             f"attention kind {kind!r}: chunked prefill over a cache is "
             f"ROADMAP Queue 1 item 7, speculative verify item 10")
-    bq = 64 if sq > 32 and bh * -(-sq // 64) >= 2 * H100_SMS else 32
-    if bq not in BLOCK_Q_BY_HEAD_DIM.get(head_dim, BLOCK_Q):
-        bq = 32
-    return bq, BLOCK_K
+    bqs, bk = kernel_tiles(dtype, head_dim)
+    fits = [bq for bq in bqs
+            if bq == 32 or sq > bq // 2 and bh * -(-sq // bq) >= 2 * H100_SMS]
+    return max(fits), bk
 
 
 def mha_prefill(q, k, v, *, causal=True, window=None, softcap=None,
@@ -61,7 +60,8 @@ def mha_prefill(q, k, v, *, causal=True, window=None, softcap=None,
     tiles ``attn_block_sizes`` picks. ``kv_len`` (default Skv) masks kv
     columns at and beyond it."""
     B, Sq, Hq, D = q.shape
-    bq, bk = attn_block_sizes("prefill", Sq, bh=B * Hq, head_dim=D)
+    bq, bk = attn_block_sizes("prefill", Sq, bh=B * Hq, head_dim=D,
+                              dtype=q.dtype)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap, kv_len=kv_len, bq=bq, bk=bk)
 
@@ -69,7 +69,8 @@ def mha_prefill(q, k, v, *, causal=True, window=None, softcap=None,
 def gqa_decode(q, k, v, q_pos, kv_pos, *, window=None, softcap=None):
     """q: (B, 1, Hq, D); k/v cache: (B, L, Hkv, D); q_pos: (B,); kv_pos:
     (B, L) int32 -> (B, 1, Hq, D), at K2's one kv tile (the ``bk`` of
-    ``attn_block_sizes("decode", ...)``)."""
+    ``attn_block_sizes("decode", ...)``) and its split count
+    (``decode_attention.decode_splits``)."""
     return decode_attention(q, k, v, q_pos, kv_pos, window=window,
                             softcap=softcap)
 

@@ -23,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (BLOCK_K, decode_attention,
                                                   decode_attention_plain,
+                                                  decode_splits,
                                                   live_tile_counts)
 from repro_torch.models import (decode_loop, decode_segment, forward,
                                 init_params, make_caches, sample_logits)
@@ -52,6 +53,18 @@ K2_CASES = {
     "g7": (2, 64, 14, 2, 64, "prefix", {}),
     "g7_window": (1, 96, 14, 2, 64, "ring", dict(window=20, softcap=30.0)),
 }
+
+# Split-KV settings, same layout: "dead_split" leaves the later splits with
+# no live tile; "g16_d256" is the hybrid's G = 16 query heads over one kv
+# head of 256.
+SPLIT_CASES = {
+    "dead_split": (2, 128, 4, 2, 32, "prefix", {}),
+    "wrapped_ring": (2, 96, 4, 2, 32, "ring", {}),
+    "window": (2, 128, 4, 2, 32, "ring", dict(window=40)),
+    "softcap": (1, 96, 4, 2, 32, "full", dict(softcap=5.0)),
+    "g16_d256": (2, 64, 16, 1, 256, "ring", {}),
+}
+SPLITS = (1, 2, 3, 5)
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +122,7 @@ def _kv_pos(pattern, B, L, seed=0):
 
 
 def _k2_inputs(case, seed=0, D=None):
-    B, L, Hq, Hkv, case_d, pattern, kw = K2_CASES[case]
+    B, L, Hq, Hkv, case_d, pattern, kw = {**K2_CASES, **SPLIT_CASES}[case]
     D = D or case_d
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)
@@ -177,6 +190,106 @@ def test_k2_plain_matches_reference(case, jx):
         visits.numpy(), live_tile_counts(q_pos, kv_pos, bk=BLOCK_K,
                                          window=kw.get("window"),
                                          n_kv_heads=k.shape[2]))
+
+
+_PALLAS_SPLIT = {}
+
+
+@pytest.mark.parametrize("n_split", SPLITS)
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_k2_split_plain_matches_pallas_kernel(case, n_split, jx):
+    """The per-split partials and their fold against the single-pass
+    Pallas kernel (interpret mode, the same 16-slot tile); the visits
+    equal its counts for every split count."""
+    q, k, v, q_pos, kv_pos, kw = _k2_inputs(case, seed=4)
+    out, visits = decode_attention_plain(*_tensors(q, k, v, q_pos, kv_pos),
+                                         bk=16, n_split=n_split, **kw)
+    if case not in _PALLAS_SPLIT:
+        jq, jk, jv, jqp, jkvp = _pallas_layout(q, k, v, q_pos, kv_pos)
+        jout, jvis = jx["jda"].decode_attention(
+            jq, jk, jv, jqp, jkvp, bk=16, interpret=True,
+            return_visits=True, **kw)
+        _PALLAS_SPLIT[case] = np.asarray(jout), np.asarray(jvis)[:, 0]
+    jout, jvis = _PALLAS_SPLIT[case]
+    np.testing.assert_allclose(out.numpy().reshape(jout.shape), jout,
+                               atol=ATOL_K2, rtol=0)
+    np.testing.assert_array_equal(visits.numpy(), jvis)
+    np.testing.assert_array_equal(
+        visits.numpy(), live_tile_counts(q_pos, kv_pos, bk=16,
+                                         window=kw.get("window"),
+                                         n_kv_heads=k.shape[2]))
+
+
+@pytest.mark.parametrize("n_split", SPLITS)
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES) + ["ragged"])
+def test_k2_split_plain_matches_reference(case, n_split, jx):
+    """At the kernel's tile of 32, against the jnp oracle; "ragged" has an
+    L of 53, no multiple of the tile."""
+    if case == "ragged":
+        q, k, v, q_pos, kv_pos, kw = _k2_inputs("wrapped_ring", seed=5)
+        k, v, kv_pos = k[:, :53], v[:, :53], kv_pos[:, :53]
+        q_pos = np.maximum(q_pos, kv_pos.max(1))
+    else:
+        q, k, v, q_pos, kv_pos, kw = _k2_inputs(case, seed=6)
+    out, visits = decode_attention_plain(*_tensors(q, k, v, q_pos, kv_pos),
+                                         n_split=n_split, **kw)
+    jq, jk, jv, jqp, jkvp = _pallas_layout(q, k, v, q_pos, kv_pos)
+    want = jx["ref"].decode_attention_ref(jq, jk, jv, jqp[:, 0], jkvp,
+                                          window=kw.get("window"),
+                                          softcap=kw.get("softcap"))
+    np.testing.assert_allclose(out.numpy().reshape(np.asarray(want).shape),
+                               np.asarray(want), atol=ATOL_K2, rtol=0)
+    np.testing.assert_array_equal(
+        visits.numpy(), live_tile_counts(q_pos, kv_pos, bk=BLOCK_K,
+                                         window=kw.get("window"),
+                                         n_kv_heads=k.shape[2]))
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_k2_split_counts_keep_visits_and_empty_rows(case):
+    """Every split count visits the same tiles; a split past the last
+    tile is empty; a row with no live slot gives the single pass's
+    result (zeros) exactly, whatever the split count."""
+    q, k, v, q_pos, kv_pos, kw = _k2_inputs(case, seed=7)
+    kv_pos[0] = -1                              # row 0: no live slot
+    args = _tensors(q, k, v, q_pos, kv_pos)
+    one, one_visits = decode_attention_plain(*args, n_split=1, **kw)
+    n_tiles = -(-k.shape[1] // BLOCK_K)
+    assert not one[0].any()
+    for n_split in range(2, n_tiles + 3):
+        out, visits = decode_attention_plain(*args, n_split=n_split, **kw)
+        assert torch.equal(visits, one_visits)
+        assert torch.equal(out[0], one[0])
+        torch.testing.assert_close(out, one, atol=ATOL_K2, rtol=0)
+    with pytest.raises(ValueError, match="n_split"):
+        decode_attention_plain(*args, n_split=0)
+
+
+def test_k2_split_count_is_a_function_of_shapes():
+    """``decode_splits`` sees (B, Hkv, L) only, never gives more splits
+    than tiles or an empty split, and aims at two blocks per SM: equal
+    runs of tiles may round that down, but never below half of it; the
+    CPU wrapper runs the plain version at that count."""
+    assert decode_splits(32, 2, 144) == (5, 1)      # Qwen2 decode
+    assert decode_splits(32, 1, 144) == (5, 1)      # the hybrid's
+    assert decode_splits(1, 2, 4096) == (128, 1)
+    assert decode_splits(32, 2, 4096) == (5, 26)
+    for B in (1, 3, 16, 32, 200):
+        for Hkv in (1, 2, 8):
+            for L in (1, 31, 32, 33, 144, 528, 4096):
+                n, per = decode_splits(B, Hkv, L)
+                n_tiles = -(-L // BLOCK_K)
+                assert 1 <= n <= n_tiles and per >= 1
+                assert (n - 1) * per < n_tiles <= n * per
+                assert 2 * B * Hkv * n >= min(264, B * Hkv * n_tiles)
+    q, k, v, q_pos, kv_pos, kw = _k2_inputs("wrapped_ring", seed=8)
+    args = _tensors(q, k, v, q_pos, kv_pos)
+    n = decode_splits(q.shape[0], k.shape[2], k.shape[1])[0]
+    assert n > 1
+    assert torch.equal(decode_attention(*args),
+                       decode_attention_plain(*args, n_split=n)[0])
+    assert torch.equal(decode_attention(*args, n_split=1),
+                       decode_attention_plain(*args)[0])
 
 
 def test_k2_visits_skip_dead_tiles():
@@ -565,13 +678,52 @@ def test_k2_cuda_kernel_matches_plain(case, q_dtype, kv_dtype, tol):
                                        return_visits=True, **kw)
         torch.cuda.synchronize()
         assert decode_attention.launches == before + 1
+        n_split = decode_splits(q.shape[0], k.shape[2], k.shape[1])[0]
         ref, ref_visits = decode_attention_plain(
             qq.float(), kk.to(q_dtype).float(), vv.to(q_dtype).float(), qp,
-            kvp, **kw)
+            kvp, n_split=n_split, **kw)
         torch.testing.assert_close(out.float(), ref, atol=tol,
                                    rtol=0 if q_dtype == torch.float32
                                    else tol)
         assert torch.equal(visits, ref_visits)
+
+
+@requires_cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.bfloat16, torch.float32, 2e-2)])
+@pytest.mark.parametrize("n_split", SPLITS)
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES) + ["ragged"])
+def test_k2_cuda_kernel_matches_plain_at_split_counts(case, n_split,
+                                                      q_dtype, kv_dtype,
+                                                      tol):
+    """The split pass and the merge against the plain version at the same
+    split count (empty trailing splits included), visits exact."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if case == "ragged":
+        q, k, v, q_pos, kv_pos, kw = _k2_inputs("wrapped_ring", seed=5,
+                                                D=64)
+        k, v, kv_pos = k[:, :53], v[:, :53], kv_pos[:, :53]
+        q_pos = np.maximum(q_pos, kv_pos.max(1))
+    else:                  # at a head dim the kernel is built for
+        D = max(64, SPLIT_CASES[case][4])
+        q, k, v, q_pos, kv_pos, kw = _k2_inputs(case, seed=9, D=D)
+    qq, kk, vv, qp, kvp = (t.cuda() for t in _tensors(q, k, v, q_pos,
+                                                      kv_pos))
+    qq, kk, vv = qq.to(q_dtype), kk.to(kv_dtype), vv.to(kv_dtype)
+    kk, vv = kk.contiguous(), vv.contiguous()
+    before = decode_attention.launches
+    out, visits = decode_attention(qq, kk, vv, qp, kvp, n_split=n_split,
+                                   return_visits=True, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref, ref_visits = decode_attention_plain(
+        qq.float(), kk.to(q_dtype).float(), vv.to(q_dtype).float(), qp, kvp,
+        n_split=n_split, **kw)
+    torch.testing.assert_close(out.float(), ref, atol=tol,
+                               rtol=0 if q_dtype == torch.float32 else tol)
+    assert torch.equal(visits, ref_visits)
 
 
 @requires_cuda

@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q,
+from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q, TILES,
                                                  flash_attention,
                                                  flash_attention_plain,
+                                                 kernel_tiles,
                                                  live_block_counts)
 
 requires_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -33,6 +34,17 @@ CASES = {
     # rows >= 107 see no key: they average v over the masked columns of
     # the tiles they visit, as the TPU kernel does (the oracle differs)
     "masked_rows": (1, 160, 160, 2, 2, 16, dict(causal=True, window=8,
+                                                kv_len=100)),
+}
+
+# At the bf16 kernel's kv tile of 64 (the Pallas kernel wants S a multiple
+# of its tiles): (B, Sq, Skv, Hq, Hkv, D, options)
+CASES_BK64 = {
+    "causal": (1, 128, 128, 4, 2, 32, dict(causal=True)),
+    "window": (1, 192, 192, 2, 2, 16, dict(causal=True, window=70)),
+    "softcap_kv_len": (1, 64, 128, 2, 1, 32, dict(causal=False, softcap=20.0,
+                                                  kv_len=100)),
+    "masked_rows": (1, 192, 192, 2, 2, 16, dict(causal=True, window=8,
                                                 kv_len=100)),
 }
 
@@ -71,6 +83,52 @@ def test_plain_matches_pallas_kernel(case, jax_k1):
     np.testing.assert_allclose(_bh(out.numpy()), np.asarray(jout),
                                atol=ATOL, rtol=0)
     np.testing.assert_array_equal(visits.numpy(), np.asarray(jvis))
+
+
+@pytest.mark.parametrize("bq", [32, 64])
+@pytest.mark.parametrize("case", sorted(CASES_BK64))
+def test_plain_at_the_bf16_kv_tile_matches_pallas_kernel(case, bq, jax_k1):
+    """The bf16 kernel's kv tile of 64 rows against the Pallas kernel at
+    the same tiles; visits against it and ``live_block_counts``."""
+    jfa, _ = jax_k1
+    B, Sq, Skv, Hq, Hkv, D, kw = CASES_BK64[case]
+    q, k, v = _inputs(B, Sq, Skv, Hq, Hkv, D, seed=2)
+    out, visits = flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        bq=bq, bk=64, **kw)
+    G = Hq // Hkv
+    kr, vr = (np.repeat(x, G, axis=2) for x in (k, v))
+    jout, jvis = jfa.flash_attention(_bh(q), _bh(kr), _bh(vr), bq=bq, bk=64,
+                                     interpret=True, return_visits=True,
+                                     **kw)
+    np.testing.assert_allclose(_bh(out.numpy()), np.asarray(jout),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(visits.numpy(), np.asarray(jvis))
+    want = live_block_counts(Sq, Skv, causal=kw["causal"],
+                             window=kw.get("window"), bq=bq, bk=64,
+                             kv_len=kw.get("kv_len"))
+    assert visits.tolist() == [want] * (B * Hq)
+
+
+def test_default_kv_tile_follows_the_dtype():
+    """Without ``bk`` the wrapper and the plain version take the kernel's
+    tile for q's dtype and head dim: 64 rows in bf16 (32 at head dim
+    256), 32 in fp32."""
+    for dtype, D, bk in ((torch.bfloat16, 64, 64), (torch.bfloat16, 256, 32),
+                         (torch.float32, 64, 32), (torch.float32, 256, 32)):
+        assert kernel_tiles(dtype, D)[1] == bk
+        q, k, v = (torch.from_numpy(x).to(dtype)
+                   for x in _inputs(1, 160, 160, 2, 1, D, seed=3))
+        for fn in (flash_attention, flash_attention_plain):
+            res = fn(q, k, v, causal=True, bq=32, **(
+                dict(return_visits=True) if fn is flash_attention else {}))
+            out, visits = res
+            want = live_block_counts(160, 160, causal=True, window=None,
+                                     bq=32, bk=bk)
+            assert out.dtype == dtype
+            assert visits.tolist() == [want] * 2
+        ref, _ = flash_attention_plain(q, k, v, causal=True, bq=32, bk=bk)
+        assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("case", sorted(set(CASES) - {"masked_rows"}))
@@ -146,6 +204,25 @@ def test_block_sizes_are_built_tiles():
         ops.attn_block_sizes("chunk", 16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_block_sizes_are_built_tiles_at_every_head_dim(head_dim, dtype):
+    """``attn_block_sizes`` returns only tiles the kernel is built for:
+    bq from its q tiles, bk its one kv tile for (dtype, head dim)."""
+    bqs, bk = TILES[(dtype, head_dim)]
+    seen = set()
+    for sq in (1, 16, 32, 33, 64, 128, 512, 2048):
+        for bh in (1, 12, 64, 384, 512, 4096):
+            got = ops.attn_block_sizes("prefill", sq, bh=bh,
+                                       head_dim=head_dim, dtype=dtype)
+            assert got[0] in bqs and got[1] == bk
+            seen.add(got)
+    assert seen == {(bq, bk) for bq in bqs}
+    want_bk = {torch.float32: 32, torch.bfloat16: 32 if head_dim == 256
+               else 64}[dtype]
+    assert bk == want_bk
+
+
 def test_bad_inputs_raise():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 32, 32, 3, 2, 16))
     with pytest.raises(ValueError, match="multiple"):
@@ -173,8 +250,38 @@ def test_cuda_kernel_matches_plain(case, dtype, tol):
                                       **kw)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 1
+        ref, ref_visits = flash_attention_plain(
+            q.float(), k.float(), v.float(), bq=bq,
+            bk=kernel_tiles(dtype, D)[1], **kw)
+        torch.testing.assert_close(out.float(), ref, atol=tol,
+                                   rtol=0 if dtype == torch.float32 else tol)
+        assert torch.equal(visits, ref_visits)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(
+    f"bk64_{c}" for c in CASES_BK64))
+def test_cuda_kernel_matches_plain_at_every_built_tile(case, head_dim,
+                                                       dtype, tol):
+    """Every q tile the kernel is built for at (dtype, head dim), at its
+    kv tile, against the plain version at the same tiles; visits exact."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Sq, Skv, Hq, Hkv, _, kw = (CASES_BK64[case[5:]]
+                                  if case.startswith("bk64_")
+                                  else CASES[case])
+    bqs, bk = TILES[(dtype, head_dim)]
+    q, k, v = (torch.from_numpy(x).cuda().to(dtype)
+               for x in _inputs(B, Sq, Skv, Hq, Hkv, head_dim, seed=4))
+    for bq in bqs:
+        out, visits = flash_attention(q, k, v, bq=bq, return_visits=True,
+                                      **kw)
+        torch.cuda.synchronize()
         ref, ref_visits = flash_attention_plain(q.float(), k.float(),
-                                                v.float(), bq=bq, **kw)
+                                                v.float(), bq=bq, bk=bk,
+                                                **kw)
         torch.testing.assert_close(out.float(), ref, atol=tol,
                                    rtol=0 if dtype == torch.float32 else tol)
         assert torch.equal(visits, ref_visits)

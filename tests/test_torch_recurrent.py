@@ -23,7 +23,8 @@ from repro_torch.bridge import to_torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_plain)
+                                                  decode_attention_plain,
+                                                  decode_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
@@ -617,16 +618,19 @@ def test_k1_cuda_kernel_at_head_dim_256_matches_plain(case, dtype, tol):
     q = torch.randn(B, Sq, Hq, 256, device="cuda", generator=gen).to(dtype)
     k, v = (torch.randn(B, Skv, Hkv, 256, device="cuda",
                         generator=gen).to(dtype) for _ in range(2))
-    bq = ops.attn_block_sizes("prefill", Sq, bh=B * Hq, head_dim=256)[0]
+    bq, bk = ops.attn_block_sizes("prefill", Sq, bh=B * Hq, head_dim=256,
+                                  dtype=dtype)
     out, visits = flash_attention(q, k, v, bq=bq, return_visits=True, **kw)
     torch.cuda.synchronize()
     ref, ref_visits = flash_attention_plain(q.float(), k.float(), v.float(),
-                                            bq=bq, **kw)
+                                            bq=bq, bk=bk, **kw)
     torch.testing.assert_close(out.float(), ref, atol=tol,
                                rtol=0 if dtype == torch.float32 else tol)
     assert torch.equal(visits, ref_visits)
+    # fp32 is built for bq = 32 only at head dim 256, bf16 for 32 and 64
     with pytest.raises(ValueError, match="not built at head dim 256"):
-        flash_attention(q, k, v, bq=64, **kw)
+        flash_attention(q, k, v, bq=64 if dtype == torch.float32 else 128,
+                        **kw)
 
 
 @requires_cuda
@@ -653,7 +657,7 @@ def test_k2_cuda_kernel_at_head_dim_256_matches_plain(q_dtype, kv_dtype,
         torch.cuda.synchronize()
         ref, ref_visits = decode_attention_plain(
             q.float(), k.to(q_dtype).float(), v.to(q_dtype).float(), q_pos,
-            kv_pos, window=window)
+            kv_pos, window=window, n_split=decode_splits(B, 1, L)[0])
         torch.testing.assert_close(out.float(), ref, atol=tol,
                                    rtol=0 if q_dtype == torch.float32
                                    else tol)
