@@ -6,7 +6,8 @@ Phases (each raises on failure; nothing is caught):
   1. print the card, build every CUDA kernel from ``src/repro_torch``,
      print each instantiation's registers, spills and static shared
      memory from ptxas, and fail if a bf16 instantiation of K1 or K2
-     that the main paths pick spills;
+     that the main paths pick, or any of K3/K4's wgmma and split
+     instantiations (all bf16, all on the plan's paths), spills;
   2. hold K1 (flash attention) against its plain PyTorch version in every
      setting the kernel supports and at the decoder prefill's own shapes
      and tiles, fp32 (the CUDA-core kernel) and bf16 (the tensor-core
@@ -45,8 +46,11 @@ Phases (each raises on failure; nothing is caught):
      and the decoder burst;
  10. hold K3 (the dequant-fused int8 matmul) and K4 (the tiled matmul)
      against their plain versions at every (K, N) of both models'
-     projections for M = 1, 32 and 4096 and at ragged shapes, fp32 and
-     bf16, with an all-zero weight column that must give exact zeros;
+     projections for M = 1, 2, 8, 16, 32, 64 and 4096, at ragged shapes
+     and at a K that is not a multiple of the split slab, fp32 and bf16,
+     with an all-zero weight column that must give exact zeros; then at
+     Qwen2's decode shapes rows of M = 1, 2, 4, 8 and 16 must be the same
+     bits as those rows in M = 32, and two launches the same bits;
  11. GECToR-base with int8 weights (``quantize_params``) in bf16: the K3
      forward against the plain-int8 forward, both against the int8 model
      in fp32, gated by phase 3's factors;
@@ -61,8 +65,11 @@ Phases (each raises on failure; nothing is caught):
      ``metrics()["weight_bytes"]`` beside the float engines';
  14. time K3 and K4 at the main shapes by device time beside their
      bounds, plain versions and ``torch.matmul`` on the weight dequantized
-     beforehand (the yardstick; the port never calls it), then one int8
-     GECToR forward and one int8 Qwen2 decode step beside the float ones;
+     beforehand (the yardstick; the port never calls it), each as a factor
+     of that call beside its target (2.0 at M = 4096, 1.5 for K3 at a
+     decode step's M = 32), the K3 time of a Qwen2 int8 decode step
+     beside its 1.0 ms target, then one int8 GECToR forward and one int8
+     Qwen2 decode step beside the float ones;
  15. hold K5 (the RG-LRU linear scan) against its plain version at the
      hybrid's shapes, a long S and a ragged W, fp32, within 1e-5 of the
      output's largest magnitude, with an identity channel (a = 1, b = 0)
@@ -136,6 +143,12 @@ TOP1_FLIP_FACTOR = 2.0
 # K3/K4's main shape in the kernels line: GECToR-base's wq at B=32, bucket
 # 128 (M = 4096 rows, K = N = 768)
 MM_MAIN = (4096, 768, 768)
+# K3/K4 targets against torch.matmul on the dequantized bf16 weight
+# (printed, not gated): large M, and K3 at a decode step's M; and the K3
+# time of one Qwen2-0.5B int8 decode step
+MM_TARGET_LARGE = 2.0
+MM_TARGET_DECODE = 1.5
+STEP_K3_TARGET_MS = 1.0
 
 
 def card() -> str:
@@ -1147,14 +1160,18 @@ def int8_inputs(gen, M, K, N, dtype):
     return x, qw, scale
 
 
-def phase_matmul_parity(i8, matmul_tile, cfgs):
+def phase_matmul_parity(i8, cfgs):
     """K3 and K4 against their plain versions at every (K, N) of the
     main paths (GECToR-base's and Qwen2-0.5B's projections) for M = 1,
-    32 and 4096, and at ragged shapes, in fp32 (TF32 off, within 1e-4 of
-    the output's largest magnitude: another order of the fp32 sum) and
-    bf16 (within 2e-2 of it: one bf16 rounding of the output); the
-    all-zero weight column must give exact zeros. Returns (K3's and K4's
-    bf16 error at MM_MAIN, settings checked)."""
+    2, 8, 16, 32, 64 and 4096, at ragged shapes and at a K that is not a
+    multiple of the split slab, in fp32 (TF32 off, within 1e-4 of the
+    output's largest magnitude: another order of the fp32 sum) and bf16
+    (within 2e-2 of it: one bf16 rounding of the output); the all-zero
+    weight column must give exact zeros. Then, at Qwen2's decode shapes
+    in bf16, rows of M = 1, 2, 4, 8 and 16 must be the same bits as the
+    same rows in M = 32 (the split plan does not depend on M), and two
+    launches at a decode and a large shape the same bits. Returns (K3's
+    and K4's bf16 error at MM_MAIN, settings checked)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(21)
     kn = {}
@@ -1162,17 +1179,19 @@ def phase_matmul_parity(i8, matmul_tile, cfgs):
         for (K, N), names in proj_shapes(c).items():
             kn[(K, N)] = f"{c.name} {names}"
     shapes = [(M, K, N, label) for (K, N), label in kn.items()
-              for M in (1, 32, 4096)]
+              for M in (1, 2, 8, 16, 32, 64, 4096)]
     shapes += [(33, 72, 40, "ragged"), (5, 300, 17, "ragged"),
-               (130, 896, 129, "ragged")]
+               (130, 896, 129, "ragged"),
+               (32, 1000, 256, "K % split slab != 0")]
     errs, checked = {}, 0
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for M, K, N, label in shapes:
             x, qw, scale = int8_inputs(gen, M, K, N, dtype)
-            tile = matmul_tile(M, N)
+            plan = i8.matmul_plan(M, N, K)
+            taken = i8.launch_plan(x, qw, plan)
             w = (qw.float() * scale).to(dtype)
-            out3 = i8.int8_matmul(x, qw, scale, tile=tile)
-            out4 = i8.cache_matmul(x, w, tile=tile)
+            out3 = i8.int8_matmul(x, qw, scale, plan=plan)
+            out4 = i8.cache_matmul(x, w, plan=plan)
             torch.cuda.synchronize()
             for kname, out, ref in (
                     ("K3", out3, i8.int8_matmul_plain(x.float(), qw, scale)),
@@ -1182,7 +1201,8 @@ def phase_matmul_parity(i8, matmul_tile, cfgs):
                 zeros = kname == "K4" or bool((out[:, N // 3] == 0).all())
                 ok = err <= tol * mag and zeros and out.dtype == dtype
                 print(f"{kname} M={M:<4d} K={K:<4d} N={N:<5d} {label:28s} "
-                      f"tile {tile} {str(dtype)[6:]:8s} max_abs_err "
+                      f"{taken.path} {taken.tile} x{taken.splits} "
+                      f"{str(dtype)[6:]:8s} max_abs_err "
                       f"{err:.3e} of max {mag:.3e} (tol {tol} relative)"
                       + ("" if kname == "K4" else
                          f", zero column {'exact' if zeros else 'WRONG'}"),
@@ -1193,6 +1213,29 @@ def phase_matmul_parity(i8, matmul_tile, cfgs):
                                          f"{dtype}")
                 errs[(kname, M, K, N, dtype)] = err
                 checked += 1
+    # a row's bits do not depend on the batch width; launches repeat
+    qwen = [kn_ for kn_, label in kn.items() if label.startswith("qwen2")]
+    for K, N in qwen:
+        x, qw, scale = int8_inputs(gen, 32, K, N, torch.bfloat16)
+        w = (qw.float() * scale).bfloat16()
+        full3, full4 = i8.int8_matmul(x, qw, scale), i8.cache_matmul(x, w)
+        for m in (1, 2, 4, 8, 16):
+            if not (torch.equal(i8.int8_matmul(x[:m], qw, scale), full3[:m])
+                    and torch.equal(i8.cache_matmul(x[:m], w), full4[:m])):
+                raise AssertionError(f"K3/K4 rows of M={m} differ from the "
+                                     f"same rows in M=32 at K={K} N={N}")
+        print(f"K3/K4 K={K} N={N}: rows of M = 1, 2, 4, 8, 16 bit-equal to "
+              f"M = 32", flush=True)
+    for M, K, N in ((32, 4864, 896), MM_MAIN):
+        x, qw, scale = int8_inputs(gen, M, K, N, torch.bfloat16)
+        w = (qw.float() * scale).bfloat16()
+        if not (torch.equal(i8.int8_matmul(x, qw, scale),
+                            i8.int8_matmul(x, qw, scale))
+                and torch.equal(i8.cache_matmul(x, w),
+                                i8.cache_matmul(x, w))):
+            raise AssertionError(f"K3/K4 not deterministic at M={M} K={K} "
+                                 f"N={N}")
+        print(f"K3/K4 M={M} K={K} N={N}: two launches bit-equal", flush=True)
     return (errs[("K3", *MM_MAIN, torch.bfloat16)],
             errs[("K4", *MM_MAIN, torch.bfloat16)], checked)
 
@@ -1293,27 +1336,29 @@ def phase_encoder_int8_engine(cfg, params, kernels, rng):
     return launches, batch_sizes, weight_bytes
 
 
-def phase_matmul_timings(i8, matmul_tile, shapes, name):
+def phase_matmul_timings(i8, shapes, name):
     """K3 and K4 by device time at the main paths' shapes, bf16 x, beside
     the bound, the plain version and one PyTorch call as the yardstick:
     ``torch.matmul`` of x with the weight dequantized beforehand to bf16
     (the float path's GEMM; the port never calls it) and, where this
     PyTorch has it on CUDA, ``torch._weight_int8pack_mm`` (its scales are
-    bf16). Returns {(M, K, N): (K3 row, K4 row)}, a row (ms, plain ms,
-    bound ms, bound by, library ms); a kernel's ms is its event time where
-    the profiler saw no kernel."""
+    bf16). Each kernel's time is printed as a factor of ``torch.matmul``
+    beside its target (not gated). Returns {(M, K, N): (K3 row, K4 row)},
+    a row (ms, plain ms, bound ms, bound by, library ms); a kernel's ms is
+    its event time where the profiler saw no kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
     rows = {}
     for M, K, N, label in shapes:
         x, qw, scale = int8_inputs(gen, M, K, N, torch.bfloat16)
-        tile = matmul_tile(M, N)
+        plan = i8.matmul_plan(M, N, K)
         w = (qw.float() * scale).to(torch.bfloat16)
+
         def k3():
-            return i8.int8_matmul(x, qw, scale, tile=tile)
+            return i8.int8_matmul(x, qw, scale, plan=plan)
 
         def k4():
-            return i8.cache_matmul(x, w, tile=tile)
+            return i8.cache_matmul(x, w, plan=plan)
         t3, t4 = device_ms(k3), device_ms(k4)
         t3p = device_ms(lambda: i8.int8_matmul_plain(x, qw, scale), iters=5)
         t4p = device_ms(lambda: i8.cache_matmul_plain(x, w), iters=5)
@@ -1329,16 +1374,24 @@ def phase_matmul_timings(i8, matmul_tile, shapes, name):
                 pack = f"not on CUDA ({str(e)[:60]!r})"
         b3, by3 = mm_bound_ms(M, K, N, 2, 1, True)
         b4, by4 = mm_bound_ms(M, K, N, 2, 2, False)
-        print(f"timing M={M:<4d} K={K:<4d} N={N:<5d} {label:26s} tile "
-              f"{tile}, device time: K3 {fmt_ms(t3)} (bound {b3:.5f} ms "
-              f"{by3}, plain {fmt_ms(t3p)}), K4 {fmt_ms(t4)} (bound "
+        # where the profiler saw no kernel, the event time stands in
+        t3 = t3 if t3 is not None else cuda_ms(k3)
+        t4 = t4 if t4 is not None else cuda_ms(k4)
+        target3 = MM_TARGET_DECODE if M <= 64 else MM_TARGET_LARGE
+        target4 = "none" if M <= 64 else MM_TARGET_LARGE
+
+        def factor(t):
+            return "not measured" if not t_lib else f"{t / t_lib:.2f}x"
+        print(f"timing M={M:<4d} K={K:<4d} N={N:<5d} {label:26s} "
+              f"{plan.path} {plan.tile} x{plan.splits}, device time: K3 "
+              f"{fmt_ms(t3)} = {factor(t3)} torch.matmul (target "
+              f"{target3}x; bound {b3:.5f} ms {by3}, plain {fmt_ms(t3p)}), "
+              f"K4 {fmt_ms(t4)} = {factor(t4)} (target {target4}; bound "
               f"{b4:.5f} ms {by4}, plain {fmt_ms(t4p)}), torch.matmul bf16 "
               f"{fmt_ms(t_lib)}, _weight_int8pack_mm {pack} [{name}]",
               flush=True)
-        # where the profiler saw no kernel, the event time stands in
-        rows[(M, K, N)] = (
-            (t3 if t3 is not None else cuda_ms(k3), t3p, b3, by3, t_lib),
-            (t4 if t4 is not None else cuda_ms(k4), t4p, b4, by4, t_lib))
+        rows[(M, K, N)] = ((t3, t3p, b3, by3, t_lib),
+                           (t4, t4p, b4, by4, t_lib))
     return rows
 
 
@@ -1383,7 +1436,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import rglru_scan as rs
-    from repro_torch.kernels.ops import attn_block_sizes, matmul_tile
+    from repro_torch.kernels.ops import attn_block_sizes
     from repro_torch.models import forward, init_params, make_caches
     from repro_torch.quant import params_bytes, quantize_params
     from repro_torch.serving import EngineConfig, ServingEngine
@@ -1405,17 +1458,22 @@ def main() -> int:
             print(f"ptxas {k}: {inst[:100]}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads, {stack} bytes "
                   f"stack, {smem} bytes static smem", flush=True)
-    # the bf16 instantiations the main paths pick must not spill
-    main_insts = {n: r for k in ("flash_attention", "decode_attention")
+    # the bf16 instantiations the main paths pick must not spill: K1's,
+    # K2's, and every K3/K4 wgmma and split instantiation (all bf16)
+    main_insts = {n: r for k in ("flash_attention", "decode_attention",
+                                 "int8_matmul")
                   for n, r in ptxas[k].items()
                   if any(t in n for t in (
                       "flash_fwd_bf16", "decode_merge",
                       "decode_split<__nv_bfloat16",       # demangled
-                      "decode_splitI13__nv_bfloat16"))}   # mangled
+                      "decode_splitI13__nv_bfloat16",     # mangled
+                      "mm_wgmma", "mm_split"))}
     spilled = {n: r for n, r in main_insts.items() if r[1] or r[2]}
-    if not main_insts or spilled:
-        raise AssertionError(f"main-path bf16 instantiations spill (or none "
-                             f"was found in the build log): {spilled}")
+    mm_insts = [n for n in main_insts if "mm_wgmma" in n or "mm_split" in n]
+    if not main_insts or len(mm_insts) != 12 or spilled:   # 6 + 6
+        raise AssertionError(f"main-path bf16 instantiations spill (or were "
+                             f"not all found in the build log: {mm_insts}): "
+                             f"{spilled}")
 
     # ---- 2. K1 against its plain version
     main_err, checked = phase_kernel_parity(fa,
@@ -1586,8 +1644,7 @@ def main() -> int:
           f"{dec_served['decode_mean_s'] * 1e3:.3f} ms [{name}]", flush=True)
 
     # ---- 10. K3 and K4 against their plain versions
-    k3_err, k4_err, mm_checked = phase_matmul_parity(i8, matmul_tile,
-                                                     (cfg, qcfg))
+    k3_err, k4_err, mm_checked = phase_matmul_parity(i8, (cfg, qcfg))
 
     # ---- 11. GECToR-base, full width, bf16, int8 weights: K3 vs plain
     params = init_gector(cfg, vocab, 0, device="cuda")
@@ -1618,7 +1675,7 @@ def main() -> int:
     for M, what in ((DECODE_MAIN["B"], "decode"), (4096, "prefill")):
         mm_shapes += [(M, K, N, f"Qwen2 {what} {names}")
                       for (K, N), names in proj_shapes(qcfg).items()]
-    mm_rows = phase_matmul_timings(i8, matmul_tile, mm_shapes, name)
+    mm_rows = phase_matmul_timings(i8, mm_shapes, name)
     step_k3 = sum(mm_rows[(DECODE_MAIN["B"], K, N)][0][0] * len(n.split("/"))
                   for (K, N), n in proj_shapes(qcfg).items()) * qcfg.n_layers
     step_bound = sum(mm_rows[(DECODE_MAIN["B"], K, N)][0][2]
@@ -1626,8 +1683,9 @@ def main() -> int:
                      for (K, N), n in proj_shapes(qcfg).items()) * \
         qcfg.n_layers
     print(f"K3 per Qwen2-0.5B decode step (B=32, {6 * qcfg.n_layers} "
-          f"launches, alone, L2 warm): {step_k3:.4f} ms against a bound of "
-          f"{step_bound:.4f} ms [{name}]", flush=True)
+          f"launches, alone, L2 warm): {step_k3:.4f} ms (target "
+          f"{STEP_K3_TARGET_MS} ms) against a bound of {step_bound:.4f} ms "
+          f"[{name}]", flush=True)
     forward_profile(lambda: forward(cfg, params["encoder"], tokens=tt,
                                     causal=False, return_hidden=True),
                     "GECToR-base forward B=32 bucket 128 bf16, float", name)
@@ -1752,8 +1810,19 @@ def main() -> int:
         "library_ms": k3_row[4], "check": "ok",
         "settings_checked": mm_checked // 2,
         "launches_by_path": by_path(2, enc_mm_launches[0]),
-        "design": "int8 tile converted to bf16 in shared memory, mma.sync "
-                  "bf16 (fp32 FMAs for fp32 x), scale at the accumulator",
+        "design": "large M: wgmma m64nNk16 on 128x128 (two warpgroups, "
+                  "2 blocks an SM), 128x192 (where it evens out the grid) "
+                  "or 64x64 tiles, a 3-4 stage cp.async ring for x, the "
+                  "int8 tile loaded to registers two stages ahead and "
+                  "converted to bf16 (prmt + fma.bf16x2, exact) into the "
+                  "128-byte swizzle while the previous stage multiplies; "
+                  "decode M: split-K weight stream, (N/32) x splits from "
+                  "(N, K) only, 4 warps a block each with a 3-stage "
+                  "cp.async ring, mma.sync with B fragments built in "
+                  "registers, the splits of a column tile one cluster "
+                  "adding their fp32 partials in split order through "
+                  "distributed shared memory; scale once on the fp32 "
+                  "total; fp32 x or unaligned rows: masked tiles",
         "registers": registers("int8_matmul")}, {
         "name": "cache_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
@@ -1764,7 +1833,10 @@ def main() -> int:
         "bound_by": k4_row[3], "library_ms": k4_row[4], "check": "ok",
         "settings_checked": mm_checked // 2,
         "launches_by_path": by_path(3, enc_mm_launches[1]),
-        "design": "K3's source with a float weight and no scale",
+        "design": "K3's template with a bf16 weight copied by cp.async "
+                  "straight into wgmma's MN-major swizzle (read by "
+                  "ldmatrix.trans on the split path), no conversion and no "
+                  "scale",
         "registers": registers("int8_matmul")}, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",

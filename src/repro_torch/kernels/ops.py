@@ -6,7 +6,7 @@
 repeat kv_pos per kv head and pad to whole tiles (or seq blocks) before
 the kernel; the Hopper kernels read (B, S, H, D), (B, L) and (M, K)
 through strides and mask the ragged edges themselves, so here the
-wrappers only pick the tiles.
+wrappers only pick the tiles (``matmul_plan`` for K3/K4).
 """
 from __future__ import annotations
 
@@ -16,9 +16,8 @@ from repro_torch.kernels.decode_attention import BLOCK_K as DECODE_BLOCK_K
 from repro_torch.kernels.decode_attention import H100_SMS, decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  kernel_tiles)
-from repro_torch.kernels.int8_matmul import (TILE_LARGE, TILE_SMALL,
-                                             cache_matmul, int8_matmul,
-                                             int8_matmul_plain)
+from repro_torch.kernels.int8_matmul import (cache_matmul, int8_matmul,
+                                             int8_matmul_plain, matmul_plan)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 
 
@@ -75,40 +74,34 @@ def gqa_decode(q, k, v, q_pos, kv_pos, *, window=None, softcap=None):
                             softcap=softcap)
 
 
-def matmul_tile(M: int, N: int):
-    """(bm, bn, bk) for K3 and K4 on an H100: the 128 x 128 tile when its
-    grid fills the 132 SMs, else the 32 x 32 tile with a deeper K step,
-    which gives small-M products (a decode step's M is the batch) four
-    times the blocks and wastes fewer padded rows. Not yet tuned by
-    measurement."""
-    bm, bn, _ = TILE_LARGE
-    return TILE_LARGE if -(-M // bm) * -(-N // bn) >= H100_SMS \
-        else TILE_SMALL
-
-
 def matmul(x, w):
     """Tiled matmul (K4). x: (..., K); w: (K, N) of x's type ->
-    (..., N) in x's type, fp32 accumulation. No model calls it, in either
-    package."""
+    (..., N) in x's type, fp32 accumulation, at ``matmul_plan``'s path.
+    No model calls it, in either package."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    out = cache_matmul(x2, w, tile=matmul_tile(x2.shape[0], w.shape[1]))
+    out = cache_matmul(x2, w, plan=matmul_plan(x2.shape[0], w.shape[1],
+                                               x2.shape[1]))
     return out.reshape(*lead, w.shape[1])
 
 
 def matmul_q8(x, qw, scale, *, plain: bool = False):
     """Dequant-fused matmul (K3): x (M, K) float @ qw (K, N) int8 with
-    (N,) per-output-channel scales applied at the fp32 accumulator ->
-    (M, N) fp32, the kernel's output in x's type upcast (exactly). No
-    float copy of the weights is written. ``plain`` runs the plain
-    version on any device: the reference path the card check holds K3
-    against, as ``plain_attention`` is for K1/K2. JAX's ``"xla"``
-    implementation (``set_quant_matmul_impl``) has no counterpart on the
-    card: a CUDA tensor launches K3 or raises."""
+    (N,) per-output-channel scales applied once to the fp32 total ->
+    (M, N) in x's type, at ``matmul_plan(M, N, K)``'s path. No float copy
+    of the weights is written. JAX's ``matmul_q8`` returns the kernel's
+    output upcast to fp32 (``repro/kernels/ops.py:100-116``); this returns
+    it as it is, since the only caller, ``qeinsum``, casts to x's type
+    either way: its bits are the same, without the round trip. ``plain``
+    runs the plain version on any device: the reference path the card
+    check holds K3 against, as ``plain_attention`` is for K1/K2. JAX's
+    ``"xla"`` implementation (``set_quant_matmul_impl``) has no
+    counterpart on the card: a CUDA tensor launches K3 or raises."""
     if plain:
-        return int8_matmul_plain(x, qw, scale).float()
-    return int8_matmul(x, qw, scale,
-                       tile=matmul_tile(x.shape[0], qw.shape[1])).float()
+        return int8_matmul_plain(x, qw, scale)
+    return int8_matmul(x, qw, scale, plan=matmul_plan(x.shape[0],
+                                                      qw.shape[1],
+                                                      x.shape[1]))
 
 
 def lru_scan(a, b, *, plain: bool = False):

@@ -130,7 +130,8 @@ def qeinsum(eq: str, x, w, *, plain_matmul: bool = False):
     einsums the models use (contraction over the trailing axes of ``x`` =
     the leading axes of ``w``; outputs = x's batch dims then w's output
     dims) collapse to one (M, K) x (K, N) ``ops.matmul_q8`` with the (N,)
-    output-channel scales, cast back to x's type. ``plain_matmul`` takes
+    output-channel scales, whose output is already in x's type (JAX's is
+    fp32, cast here; the bits are the same). ``plain_matmul`` takes
     the matmul's plain version on any device: the model-level reference,
     set only by the card check and the tests."""
     if not is_quantized(w):
@@ -143,4 +144,4 @@ def qeinsum(eq: str, x, w, *, plain_matmul: bool = False):
     N = math.prod(out_shape)
     out = ops.matmul_q8(x.reshape(-1, K), qw.reshape(K, N),
                         scale.reshape(N), plain=plain_matmul)
-    return out.reshape(lead + out_shape).to(x.dtype)
+    return out.reshape(lead + out_shape)

@@ -1,5 +1,5 @@
-"""The port stands alone: ``src/repro_torch/**`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of the JAX package ``repro`` (the
+"""The port stands alone: ``src/repro_torch/**``, ``chip_smoke.py`` and
+``chip_sweep.py`` import neither ``jax`` nor anything of the JAX package ``repro`` (the
 machine with the card has no JAX). Checked on the source, with ``ast``."""
 import ast
 from pathlib import Path
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_sweep.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

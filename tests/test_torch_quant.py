@@ -12,9 +12,14 @@ keeps JAX's layout and the prefill fill writes its scale planes. At the
 smoke configs in fp32, the int8 GECToR forward, Qwen2's int8 prefill and
 ``decode_segment`` over an int8 cache, and both engines with
 ``weight_quant``/``kv_quant`` match JAX: logits within 1e-4, tags, tokens
-and finish reasons identical, ``weight_bytes`` equal. The cases marked
-``requires_cuda`` hold K3 and K4 against their plain versions on the card
-and skip here; they need no JAX, which is imported in a fixture.
+and finish reasons identical, ``weight_bytes`` equal. ``matmul_plan`` is
+pinned here: the same plan at every decode width, 2 x 132 blocks at
+Qwen2's w_in and w_down, every tile within a block's shared memory, the
+masked path for unaligned rows; ``qeinsum`` keeps its bf16 bits. The
+cases marked ``requires_cuda`` hold K3 and K4 against their plain
+versions on the card (and rows bit-equal across widths, two launches
+bit-equal, every int8 value converted exactly) and skip here; they need
+no JAX, which is imported in a fixture.
 """
 import dataclasses
 import math
@@ -28,10 +33,12 @@ from repro_torch.configs import get_config
 from repro_torch.core import gector as tg
 from repro_torch.core.tags import KEEP
 from repro_torch.kernels import ops
-from repro_torch.kernels.int8_matmul import (SMEM_LIMIT, TILES,
-                                             cache_matmul,
+from repro_torch.kernels.int8_matmul import (SMEM_LIMIT, SPLIT_ROWS,
+                                             TILES, Plan, cache_matmul,
                                              cache_matmul_plain, int8_matmul,
-                                             int8_matmul_plain, smem_bytes)
+                                             int8_matmul_plain, launch_plan,
+                                             matmul_plan, plan_blocks,
+                                             smem_bytes)
 from repro_torch.models import attention as ta
 from repro_torch.models import decode_segment, forward, make_caches
 from repro_torch.quant import (default_policy, dequantize_kv,
@@ -311,18 +318,117 @@ def test_qeinsum_matches_jax(jx, eq, xshape, wshape, nc):
 
 
 def test_smem_budget_and_tiles():
-    for tile in TILES:
+    """The masked tiles keep to 48 KB of static shared memory; the wgmma
+    and split tiles fit a block's 232,448 bytes (they raise their
+    dynamic limit once); ``matmul_plan`` picks the split path at decode
+    M and the wgmma tiles by how well they fill the card."""
+    for tile in TILES["masked"]:
         for dtype in (torch.float32, torch.bfloat16):
-            assert smem_bytes(*tile, dtype=dtype) <= 48 * 1024
-    assert smem_bytes(256, 256, 256, torch.float32) > SMEM_LIMIT
-    assert ops.matmul_tile(32, 896) == ops.matmul_tile(4096, 128) == \
-        TILES[1]
-    assert ops.matmul_tile(4096, 768) == TILES[0]
+            assert smem_bytes("masked", tile, dtype=dtype) <= 48 * 1024
+    for path in ("wgmma", "split"):
+        for tile in TILES[path]:
+            for w_dtype in (torch.int8, torch.bfloat16):
+                assert 48 * 1024 < smem_bytes(path, tile, w_dtype) \
+                    <= SMEM_LIMIT
+    assert smem_bytes("masked", (256, 256, 256), dtype=torch.float32) > \
+        SMEM_LIMIT
+    assert matmul_plan(32, 896, 4864).path == \
+        matmul_plan(1, 128, 896).path == "split"
+    assert matmul_plan(4096, 896, 896) == \
+        Plan("wgmma", TILES["wgmma"][0], 1, 896)
+    # 192 tiles of 128 x 128 would leave 60 SMs with two: 128 x 192
+    assert matmul_plan(4096, 768, 768).tile == TILES["wgmma"][1]
+    assert matmul_plan(4096, 128, 896).tile == TILES["wgmma"][2]
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="must be"):
         int8_matmul(x, torch.zeros(9, 3, dtype=torch.int8), torch.ones(3))
     with pytest.raises(ValueError, match="scale"):
         int8_matmul(x, torch.zeros(8, 3, dtype=torch.int8), torch.ones(4))
+
+
+# (K, N) of one layer's projections in qeinsum's view
+QWEN2_KN = [(896, 896), (896, 128), (896, 9728), (4864, 896)]
+GECTOR_KN = [(768, 768), (768, 3072), (3072, 768)]
+
+
+@pytest.mark.parametrize("K,N", QWEN2_KN + GECTOR_KN + [(1000, 256)])
+def test_matmul_plan_is_the_same_at_every_decode_width(K, N):
+    """At decode M the plan, splits included, comes from (N, K) alone,
+    so a row's sum runs in one order at every batch width; the splits
+    cover K in whole 128-row stages, the last one possibly short."""
+    plans = {matmul_plan(M, N, K) for M in range(1, 33)}
+    assert len(plans) == 1
+    (p,) = plans
+    assert p.path == "split" and p.kslab % p.tile[2] == 0
+    assert (p.splits - 1) * p.kslab < K <= p.splits * p.kslab
+
+
+@pytest.mark.parametrize("K,N", [(896, 9728), (4864, 896)])
+def test_matmul_plan_streams_w_in_and_w_down_on_264_blocks(K, N):
+    """Qwen2-0.5B's w_in and w_down at a decode step: at least two blocks
+    per SM of the 132 stream the weight."""
+    for M in (1, 32):
+        assert plan_blocks(M, N, matmul_plan(M, N, K)) >= 2 * 132
+
+
+@pytest.mark.parametrize("M", [1, 16, 32, 64, 4096])
+@pytest.mark.parametrize("K,N", QWEN2_KN + GECTOR_KN)
+def test_every_planned_tile_fits_shared_memory(M, K, N):
+    p = matmul_plan(M, N, K)
+    rows = [r for r in SPLIT_ROWS if r >= M][:1] if p.path == "split" \
+        else [p.tile[0]]
+    for w_dtype in (torch.int8, torch.bfloat16):
+        for r in rows:
+            assert smem_bytes(p.path, (r,) + tuple(p.tile[1:]), w_dtype) \
+                <= SMEM_LIMIT
+    lp = launch_plan(torch.zeros(M, K), torch.zeros(K, N), p)
+    assert lp.path == "masked" and lp.tile in TILES["masked"]
+    assert smem_bytes("masked", lp.tile, dtype=torch.float32) <= 48 * 1024
+
+
+def test_launch_plan_takes_the_masked_path_where_rows_do_not_align():
+    p = matmul_plan(32, 96, 256)
+    x = torch.zeros(32, 256, dtype=torch.bfloat16)
+    qw = torch.zeros(256, 96, dtype=torch.int8)
+    assert launch_plan(x, qw, p) == p
+    assert launch_plan(x.float(), qw, p) == \
+        Plan("masked", TILES["masked"][1], 1, 256)
+    wide = torch.zeros(32, 259, dtype=torch.bfloat16)[:, :256]
+    assert launch_plan(wide, qw, p).path == "masked"     # odd row stride
+    assert launch_plan(x, torch.zeros(256, 104, dtype=torch.int8)[:, :96],
+                       p).path == "masked"                # 104-byte rows
+    big = matmul_plan(4096, 768, 768)
+    assert launch_plan(torch.zeros(4096, 768), torch.zeros(768, 768),
+                       big).tile == TILES["masked"][0]
+
+
+@pytest.mark.parametrize("eq,xshape,wshape,nc", [
+    ("bsd,dhk->bshk", (2, 5, 16), (16, 2, 8), 1),
+    ("bshk,hkd->bsd", (2, 5, 2, 8), (2, 8, 16), 2),
+    ("bsf,fd->bsd", (2, 5, 24), (24, 16), 1),
+])
+def test_qeinsum_int8_leaf_keeps_its_bf16_bits(eq, xshape, wshape, nc):
+    """bf16 x with an int8 leaf: ``matmul_q8`` returns x's type and
+    ``qeinsum`` takes it as it is, the same bits as the former fp32 round
+    trip (the plain output upcast, then cast back)."""
+    rng = np.random.default_rng(len(eq) + nc)
+    x = torch.from_numpy(rng.standard_normal(xshape).astype(np.float32))
+    x = x.bfloat16()
+    leaf = quantize_leaf(torch.from_numpy(
+        (0.1 * rng.standard_normal(wshape)).astype(np.float32)), nc)
+    got = qeinsum(eq, x, leaf)
+    K = math.prod(wshape[:nc])
+    N = math.prod(wshape[nc:])
+    lead = xshape[:len(xshape) - nc]
+    mm = ops.matmul_q8(x.reshape(-1, K), leaf["qw"].reshape(K, N),
+                       leaf["scale"].reshape(N))
+    assert mm.dtype == torch.bfloat16
+    before = int8_matmul_plain(x.reshape(-1, K), leaf["qw"].reshape(K, N),
+                               leaf["scale"].reshape(N)).float().to(x.dtype)
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == lead + tuple(wshape[nc:])
+    assert torch.equal(got.reshape(-1, N), before)
+    assert torch.equal(mm, before)
 
 
 # ---------------------------------------------------------------- caches
@@ -587,7 +693,11 @@ def test_k3_k4_cuda_kernels_reject_what_they_do_not_take():
     with pytest.raises(TypeError, match="int8"):
         int8_matmul(x, qw.float(), torch.ones(3, device="cuda"))
     with pytest.raises(ValueError, match="tile"):
-        int8_matmul(x, qw, torch.ones(3, device="cuda"), tile=(64, 64, 64))
+        int8_matmul(x, qw, torch.ones(3, device="cuda"),
+                    plan=Plan("wgmma", (64, 64, 32), 1, 8))
+    with pytest.raises(ValueError, match="split plan"):
+        int8_matmul(x, qw, torch.ones(3, device="cuda"),
+                    plan=Plan("split", TILES["split"][0], 2, 128))
     with pytest.raises(TypeError, match="x's type"):
         cache_matmul(x, qw)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -598,17 +708,100 @@ def test_k3_k4_cuda_kernels_reject_what_they_do_not_take():
 @pytest.mark.parametrize("pad", [8, 3])
 def test_k3_cuda_reads_x_through_its_row_stride(pad):
     """x as a column slice of a wider tensor: an aligned row stride takes
-    the 16-byte loads, an odd one the element-wise path."""
+    the 16-byte loads of the plan's path (here split), an odd one the
+    element-wise masked path; either equals a contiguous x on the same
+    path, bit for bit."""
     M, K, N = 40, 256, 96
     x, qw, scale = _mm_inputs(M, K, N, seed=pad)
     wide = torch.zeros(M, K + pad, dtype=torch.bfloat16, device="cuda")
     wide[:, :K] = torch.from_numpy(x).cuda().bfloat16()
     tx = wide[:, :K]
     tq, ts = torch.from_numpy(qw).cuda(), torch.from_numpy(scale).cuda()
+    taken = launch_plan(tx, tq, matmul_plan(M, N, K))
+    assert taken.path == ("split" if pad == 8 else "masked")
     got = ops.matmul_q8(tx, tq, ts)
-    want = ops.matmul_q8(tx.contiguous(), tq, ts)
+    want = int8_matmul(tx.contiguous(), tq, ts, plan=taken)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _card_inputs(M, K, N, seed):
+    x, qw, scale = _mm_inputs(M, K, N, seed=seed, zero_col=N // 2)
+    tx = torch.from_numpy(x).cuda().bfloat16()
+    tq, ts = torch.from_numpy(qw).cuda(), torch.from_numpy(scale).cuda()
+    return tx, tq, ts, (tq.float() * ts).bfloat16()
+
+
+@requires_cuda
+@pytest.mark.parametrize("K,N", QWEN2_KN)
+def test_k3_k4_cuda_rows_are_bit_equal_at_every_decode_width(K, N):
+    """The split path's plan does not depend on M, so rows 0..m-1 of a
+    product of m rows are the same bits as in the product of 32."""
+    tx, tq, ts, w = _card_inputs(32, K, N, seed=N)
+    full3, full4 = int8_matmul(tx, tq, ts), cache_matmul(tx, w)
+    for m in (1, 2, 4, 8, 16):
+        assert torch.equal(int8_matmul(tx[:m], tq, ts), full3[:m]), m
+        assert torch.equal(cache_matmul(tx[:m], w), full4[:m]), m
+
+
+@requires_cuda
+@pytest.mark.parametrize("M,K,N", [(32, 4864, 896), (32, 896, 9728),
+                                   (4096, 768, 768), (4096, 896, 128)])
+def test_k3_k4_cuda_are_deterministic(M, K, N):
+    """Two launches give the same bits: the splits' partials are added
+    in split order, with no float atomics."""
+    tx, tq, ts, w = _card_inputs(M, K, N, seed=M + K)
+    assert torch.equal(int8_matmul(tx, tq, ts), int8_matmul(tx, tq, ts))
+    assert torch.equal(cache_matmul(tx, w), cache_matmul(tx, w))
+
+
+@requires_cuda
+@pytest.mark.parametrize("M,K,N", [(32, 1000, 256), (7, 4864, 896),
+                                   (64, 2056, 48)])
+def test_k3_k4_cuda_split_with_a_ragged_last_slab(M, K, N):
+    """K not a multiple of the split slab: the last split's rows past K
+    are zero-filled, and the sum matches the plain version (bf16
+    tolerance, relative to the output's scale)."""
+    p = matmul_plan(M, N, K)
+    assert p.path == "split" and p.splits > 1 and K % p.kslab
+    tx, tq, ts, w = _card_inputs(M, K, N, seed=K)
+    for out, ref in ((int8_matmul(tx, tq, ts),
+                      int8_matmul_plain(tx.float(), tq, ts)),
+                     (cache_matmul(tx, w), cache_matmul_plain(tx.float(), w))):
+        err = (out.float() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item(), err
+    assert (int8_matmul(tx, tq, ts)[:, N // 2] == 0).all()
+
+
+@requires_cuda
+@pytest.mark.parametrize("M", [64, 256])
+def test_k3_cuda_converts_every_int8_value_exactly(M):
+    """x the identity (M rows, K = M), qw holding every int8 value, scale
+    1: each output is one weight, converted to bf16 with no error, on the
+    split path (M = 64) and the wgmma path (M = 256)."""
+    K, N = M, 256
+    k = torch.arange(K)[:, None]
+    n = torch.arange(N)[None, :]
+    qw = ((k * 37 + n) % 256 - 128).to(torch.int8).cuda()
+    x = torch.eye(M, K, dtype=torch.bfloat16, device="cuda")
+    out = int8_matmul(x, qw, torch.ones(N, device="cuda"))
+    assert matmul_plan(M, N, K).path == ("split" if M <= 64 else "wgmma")
+    assert torch.equal(out, qw.bfloat16())
+
+
+@requires_cuda
+def test_smem_bytes_match_the_cuda_source():
+    from repro_torch.kernels.int8_matmul import _lib
+    lib, code = _lib(), {"masked": 0, "wgmma": 1, "split": 2}
+    for path, tiles in TILES.items():
+        for tile in tiles:
+            rows = SPLIT_ROWS if path == "split" else (tile[0],)
+            for r in rows:
+                t = (r,) + tuple(tile[1:])
+                for w_dtype in (torch.int8, torch.bfloat16):
+                    got = lib.int8_matmul_smem(code[path], *t, 1,
+                                               int(w_dtype == torch.int8))
+                    assert got == smem_bytes(path, t, w_dtype), (path, t)
 
 
 @requires_cuda
