@@ -91,7 +91,18 @@ Phases (each raises on failure; nothing is caught):
  19. time K5, and K1 and K2 at the hybrid's shapes, beside their bounds,
      plain versions and SDPA (K5 has no library call), one full-depth
      prefill and one decode step broken down by kernel with the device's
-     idle share, and the hybrid's ``weight_bytes``.
+     idle share, and the hybrid's ``weight_bytes``;
+ 20. the paper's concurrency ladder through the port's deploy lab:
+     ``repro_torch.launch.experiment.main`` over the 21 paper profiles
+     with full-width GECToR-base (bf16, no head, bucket 32, max_batch
+     32) at NS = 1, 2, ..., 512, 3 bursts a rung: one record per profile
+     with the JAX package's fields and schema, every cell's latency and
+     rate finite and positive, every paper finding in the drift report,
+     and 12 K1 launches per batch served (warmup included); then
+     ``run_ladder`` on the int8 encoder engine over the same ladder and
+     sentences (12 K1 and 72 K3 launches a batch, one served row against
+     a direct forward), each engine's resident and peak device memory
+     beside ``weight_bytes``, and ``serve --ladder 1 16`` on the card.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its design and
 its instantiations' registers), then as the last line
@@ -1163,7 +1174,9 @@ def int8_inputs(gen, M, K, N, dtype):
 def phase_matmul_parity(i8, cfgs):
     """K3 and K4 against their plain versions at every (K, N) of the
     main paths (GECToR-base's and Qwen2-0.5B's projections) for M = 1,
-    2, 8, 16, 32, 64 and 4096, at ragged shapes and at a K that is not a
+    2, 8, 16, 32, 64 and 4096, and at GECToR-base's for M = 96 (a partial
+    64-row tile), 512 and 1024 (the ladder's batches of 3, 16 and 32 at
+    bucket 32: the 64 x 64 and 128 x 192 tiles), at ragged shapes and at a K that is not a
     multiple of the split slab, in fp32 (TF32 off, within 1e-4 of the
     output's largest magnitude: another order of the fp32 sum) and bf16
     (within 2e-2 of it: one bf16 rounding of the output); the all-zero
@@ -1179,7 +1192,8 @@ def phase_matmul_parity(i8, cfgs):
         for (K, N), names in proj_shapes(c).items():
             kn[(K, N)] = f"{c.name} {names}"
     shapes = [(M, K, N, label) for (K, N), label in kn.items()
-              for M in (1, 2, 8, 16, 32, 64, 4096)]
+              for M in (1, 2, 8, 16, 32, 64, 4096) + (
+                  LADDER_WIDTHS if label.startswith("gector") else ())]
     shapes += [(33, 72, 40, "ragged"), (5, 300, 17, "ragged"),
                (130, 896, 129, "ragged"),
                (32, 1000, 256, "K % split slab != 0")]
@@ -1240,6 +1254,37 @@ def phase_matmul_parity(i8, cfgs):
             errs[("K4", *MM_MAIN, torch.bfloat16)], checked)
 
 
+def int8_hidden_gate(cfg, qtree, tokens, label):
+    """An int8 encoder tree's hidden states through K3 in bf16 against the
+    plain-int8 forward (both with K1), both against the same tree in fp32
+    with plain matmuls; K3's error may be at most HIDDEN_ERR_FACTOR times
+    the plain path's. Returns (K3, plain, fp32) hidden states."""
+    from repro_torch.models import forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():
+        hid = forward(cfg, qtree, tokens=tokens, causal=False,
+                      return_hidden=True)
+        hid_plain = forward(cfg, qtree, tokens=tokens, causal=False,
+                            return_hidden=True, plain_matmul=True)
+        hid32 = forward(cfg32, to_fp32(qtree), tokens=tokens, causal=False,
+                        return_hidden=True, plain_matmul=True)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(hid.float()).all()
+            and hid.shape == hid_plain.shape == (*tokens.shape, cfg.d_model)):
+        raise AssertionError(f"{label}: int8 forward non-finite or "
+                             f"misshapen")
+    k_err = (hid.float() - hid32).abs().max().item()
+    p_err = (hid_plain.float() - hid32).abs().max().item()
+    print(f"{label}: hidden max_abs_err vs the int8 tree in fp32 (plain "
+          f"matmuls): K3 bf16 {k_err:.3e}, plain bf16 {p_err:.3e} (K3 at "
+          f"most {HIDDEN_ERR_FACTOR} x plain)", flush=True)
+    if k_err > HIDDEN_ERR_FACTOR * p_err:
+        raise AssertionError(f"{label}: K3 bf16 strays further from fp32 "
+                             f"than the plain int8 path: {k_err:.3e} > "
+                             f"{HIDDEN_ERR_FACTOR} x {p_err:.3e}")
+    return hid, hid_plain, hid32
+
+
 def phase_gector_int8(cfg, params, tt, mt, tags_float):
     """GECToR-base with int8 weights in bf16: the K3 forward against the
     plain-int8 forward (both with K1), both against the same quantized
@@ -1247,41 +1292,25 @@ def phase_gector_int8(cfg, params, tt, mt, tags_float):
     the plain path by phase 3's factors. How often the int8 tags agree
     with the float model's is reported, not gated (random weights)."""
     from repro_torch.core.gector import tag_head
-    from repro_torch.models import forward
     from repro_torch.quant import quantize_params
     qp = quantize_params(params)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
     qp32 = to_fp32(qp)
+    hid, hid_plain, hid32 = int8_hidden_gate(cfg, qp["encoder"], tt,
+                                             "GECToR-base int8 weights")
     with torch.inference_mode():
-        hid = forward(cfg, qp["encoder"], tokens=tt, causal=False,
-                      return_hidden=True)
-        hid_plain = forward(cfg, qp["encoder"], tokens=tt, causal=False,
-                            return_hidden=True, plain_matmul=True)
-        hid32 = forward(cfg32, qp32["encoder"], tokens=tt, causal=False,
-                        return_hidden=True, plain_matmul=True)
         tags = {"K3 bf16": tag_head(qp, hid, mt),
                 "plain bf16": tag_head(qp, hid_plain, mt)}
         tags32 = tag_head(qp32, hid32, mt)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(hid.float()).all()
-            and hid.shape == hid_plain.shape == (*tt.shape, cfg.d_model)):
-        raise AssertionError("int8 GECToR forward: non-finite or misshapen")
-    vs32 = {}
-    for label, h in (("K3 bf16", hid), ("plain bf16", hid_plain)):
-        vs32[label] = ((h.float() - hid32).abs().max().item(),
-                       (tags[label] == tags32)[mt].float().mean().item())
-        print(f"GECToR-base int8 weights {label:10s} vs the int8 model in "
-              f"fp32 (plain matmuls): hidden max_abs_err "
-              f"{vs32[label][0]:.3e}, tag agreement {vs32[label][1]:.4f}",
-              flush=True)
-    (k_err, k_agree), (p_err, p_agree) = vs32["K3 bf16"], vs32["plain bf16"]
-    if k_err > HIDDEN_ERR_FACTOR * p_err or \
-            1 - k_agree > TAG_FLIP_FACTOR * (1 - p_agree):
+    agree32 = {label: (t == tags32)[mt].float().mean().item()
+               for label, t in tags.items()}
+    print(f"GECToR-base int8 weights: tag agreement with the int8 model in "
+          f"fp32: K3 bf16 {agree32['K3 bf16']:.4f}, plain bf16 "
+          f"{agree32['plain bf16']:.4f}", flush=True)
+    k_flip, p_flip = 1 - agree32["K3 bf16"], 1 - agree32["plain bf16"]
+    if k_flip > TAG_FLIP_FACTOR * p_flip:
         raise AssertionError(
             f"K3 bf16 strays further from fp32 than the plain int8 path: "
-            f"hidden {k_err:.3e} > {HIDDEN_ERR_FACTOR} x {p_err:.3e} or tag "
-            f"flips {1 - k_agree:.4f} > {TAG_FLIP_FACTOR} x "
-            f"{1 - p_agree:.4f}")
+            f"tag flips {k_flip:.4f} > {TAG_FLIP_FACTOR} x {p_flip:.4f}")
     agree = (tags["K3 bf16"] == tags_float)[mt].float().mean().item()
     print(f"int8 (K3) tags agree with the float bf16 model's on "
           f"{agree:.4f} of {int(mt.sum())} real tokens (random weights; "
@@ -1393,6 +1422,261 @@ def phase_matmul_timings(i8, shapes, name):
         rows[(M, K, N)] = ((t3, t3p, b3, by3, t_lib),
                            (t4, t4p, b4, by4, t_lib))
     return rows
+
+
+LADDER_REPEATS = 3                 # bursts per rung of the paper's ladder
+LADDER_BATCH = 32                  # the encoder engine's max_batch there
+LADDER_BUCKET = 32                 # sentences of 8-24 tokens
+LADDER_WIDTHS = (96, 512, 1024)    # K3's M at 3, 16 and 32 of them
+
+
+def proc_stat_advances() -> bool:
+    """Whether this host's /proc/stat jiffies move: where they do not (a
+    sandboxed host), the load test's vCPU% has no sample and reads 0.0."""
+    from repro_torch.deploy.telemetry import read_proc_stat
+    before = read_proc_stat()
+    time.sleep(0.2)
+    after = read_proc_stat()
+    return before is not None and after is not None and after[0] > before[0]
+
+
+def rung_lines(cells, label, name, cpu_seen):
+    """One line per rung of a ladder: mean and p95 latency of the NS-burst,
+    sentences/s, host vCPU% (``cpu_seen``: the host's jiffies move) and
+    RAM%. ``cells`` maps NS to a list of cell dicts (one per profile of the
+    grid, or one); with several, each figure is their median and the
+    latency carries its range."""
+    for ns, group in cells.items():
+        def med(key):
+            return float(np.median([c[key] for c in group]))
+        lat = [c["latency_s"] for c in group]
+        spread = (f" (profiles {min(lat) * 1e3:.3f}-{max(lat) * 1e3:.3f})"
+                  if len(group) > 1 else "")
+        cpu = f"{med('vcpu_pct'):.1f}%" if cpu_seen else "not measured"
+        print(f"ladder {label} NS={ns}: latency mean "
+              f"{med('latency_s') * 1e3:.3f} ms{spread}, p95 "
+              f"{med('latency_p95_s') * 1e3:.3f} ms, "
+              f"{med('sentences_per_s'):.1f} sentences/s, host vCPU {cpu}, "
+              f"RAM {med('ram_pct'):.1f}% [{name}]", flush=True)
+
+
+def phase_paper_ladder(kernels, name):
+    """20. The paper's concurrency ladder on the card, through the port's
+    deploy lab: ``repro_torch.launch.experiment.main`` over the 21 paper
+    profiles with full-width GECToR-base (bf16, no head) at NS = 1..512,
+    checked record by record, K1's launches against the batches served;
+    then ``run_ladder`` on the int8 encoder engine over the same ladder and
+    sentences (K1 and K3 against its batches), and the serve CLI's
+    ``--ladder``. Launch counts are reset before each engine's warmup, so
+    its batches count. After the int8 ladder, K3 is held against its plain
+    version at every width M = batch x bucket that the ladder served, at
+    GECToR-base's three (K, N), and the int8 tree's forward at the full
+    batch (B=32, bucket 32) against the plain-int8 and fp32 forwards by
+    phase 11's gate. Device memory is read as deltas over what earlier
+    phases still hold: resident after the engine's build, and the peak
+    while it serves the ladder (stats reset after its warmup). Last, one
+    forward of each engine's tree at the ladder's full batch (B=32,
+    bucket 32) by wall time and kernels, the part of a served batch that
+    is the model's. Returns each path's launches per kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.loadtest import run_ladder
+    from repro_torch.deploy.profiles import NS_LADDER, paper_profiles
+    from repro_torch.deploy.report import PAPER_FINDINGS
+    from repro_torch.deploy.runner import (RECORD_FIELDS, SCHEMA_VERSION,
+                                           read_jsonl)
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.launch import experiment, serve
+    from repro_torch.models import forward, init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = get_config("gector-base")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "ladder"
+    cpu_seen = proc_stat_advances()
+    t0 = time.perf_counter()
+
+    # ---- the float grid through the experiment CLI; the factory is
+    # wrapped to keep the engine it builds and to read device memory
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    built = []
+    make_factory = experiment.make_engine_factory
+
+    def keep_engine(args):
+        factory = make_factory(args)
+
+        def wrapped(scenario):
+            eng, sents, sampling = factory(scenario)   # built and warm
+            torch.cuda.synchronize()
+            built.append((eng, sents, torch.cuda.memory_allocated() - base))
+            torch.cuda.reset_peak_memory_stats()
+            return eng, sents, sampling
+        return wrapped
+
+    reset_launches(kernels)
+    experiment.make_engine_factory = keep_engine
+    try:
+        experiment.main([
+            "--ladder", *map(str, NS_LADDER),
+            "--repeats", str(LADDER_REPEATS),
+            "--max-batch", str(LADDER_BATCH), "--bucket", str(LADDER_BUCKET),
+            "--out-dir", str(out_dir)])
+    finally:
+        experiment.make_engine_factory = make_factory
+    launches = tuple(fn.launches for fn in kernels)
+    peak = torch.cuda.max_memory_allocated() - base
+    t_grid = time.perf_counter() - t0
+    (eng, sents, resident), = built
+    batches = list(eng.batch_sizes)      # warmup's and the grid's
+    rows = read_jsonl(str(out_dir / experiment.GRID_FILE))
+    with open(out_dir / experiment.DRIFT_FILE) as f:
+        drift = json.load(f)
+    keys = [f"{r['profile']['provider']}/{r['profile']['machine']}"
+            for r in rows]
+    if keys != [p.key for p in paper_profiles()]:
+        raise AssertionError(f"grid records {keys}: not one per paper "
+                             f"profile")
+    for r in rows:
+        if set(r) != set(RECORD_FIELDS) or len(r) != len(RECORD_FIELDS) \
+                or r["schema_version"] != SCHEMA_VERSION \
+                or SCHEMA_VERSION != 2:
+            raise AssertionError(f"record fields {sorted(r)}, schema "
+                                 f"{r['schema_version']}")
+        if [c["ns"] for c in r["cells"]] != list(NS_LADDER) or not all(
+                np.isfinite(c[k]) and c[k] > 0 for c in r["cells"]
+                for k in ("latency_s", "sentences_per_s")):
+            raise AssertionError(f"cells of {r['profile']['provider']}/"
+                                 f"{r['profile']['machine']}: {r['cells']}")
+    if set(drift["findings"]) != set(PAPER_FINDINGS):
+        raise AssertionError(f"drift report findings {sorted(drift)}")
+    if eng.device.type != "cuda":
+        raise AssertionError(f"the grid's engine ran on {eng.device}")
+    warm = LADDER_BATCH * (LADDER_BATCH + 1) // 2
+    if sum(batches) != warm + len(rows) * LADDER_REPEATS * sum(NS_LADDER):
+        raise AssertionError(f"{sum(batches)} requests served")
+    print(f"float grid: {len(rows)} profiles x NS {list(NS_LADDER)} x "
+          f"{LADDER_REPEATS} repeats, {sum(batches)} requests (warmup "
+          f"{warm}) in {len(batches)} batches, K1 launches {launches[0]}; "
+          f"{t_grid:.1f} s [{name}]", flush=True)
+    if launches != (cfg.n_layers * len(batches), 0, 0, 0, 0):
+        raise AssertionError(f"launches K1-K5 {launches} for "
+                             f"{len(batches)} batches of {cfg.n_layers} "
+                             f"layers")
+    by_ns = {ns: [r["cells"][i] for r in rows]
+             for i, ns in enumerate(NS_LADDER)}
+    rung_lines(by_ns, "float", name, cpu_seen)
+    top = [c["sentences_per_s"] for c in by_ns[NS_LADDER[-1]]]
+    weight_bytes = rows[0]["engine"]["weight_bytes"]
+    print(f"float saturation (NS={NS_LADDER[-1]}): median "
+          f"{np.median(top):.1f} sentences/s over the profiles "
+          f"({min(top):.1f}-{max(top):.1f}); device memory: resident "
+          f"{resident:,} B after the build, peak {peak:,} B while serving, "
+          f"weight_bytes {weight_bytes:,} [{name}]", flush=True)
+
+    # ---- the int8 ladder on the same sentences
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0, device="cuda")
+    eng8 = ServingEngine(cfg, params, EngineConfig(
+        mode="encoder", max_batch=LADDER_BATCH, pad_buckets=(LADDER_BUCKET,),
+        weight_quant="int8"), device="cuda")
+    del params                           # the engine holds the int8 tree
+    try:
+        torch.cuda.synchronize()
+        resident8 = torch.cuda.memory_allocated() - base
+        reset_launches(kernels)
+        eng8.warmup()
+        torch.cuda.reset_peak_memory_stats()
+        cells8 = run_ladder(eng8, sents, ladder=NS_LADDER,
+                            repeats=LADDER_REPEATS, warmup=False)
+        launches8 = tuple(fn.launches for fn in kernels)
+        peak8 = torch.cuda.max_memory_allocated() - base
+        batches8 = list(eng8.batch_sizes)
+        weight_bytes8 = eng8.metrics()["weight_bytes"]
+        # the engine against the model: one sentence alone against a
+        # direct forward of the same padded row on the engine's tree (both
+        # through K3; the kernel itself is held below)
+        one = sents[0]
+        got = eng8.submit(one).result(timeout=300)
+        toks = torch.zeros((1, LADDER_BUCKET), dtype=torch.long,
+                           device="cuda")
+        toks[0, :len(one)] = torch.from_numpy(one)
+        with torch.inference_mode():
+            want = forward(cfg, eng8.params, tokens=toks, causal=False,
+                           return_hidden=True)[0].float().cpu()
+    finally:
+        eng8.close()
+    t_int8 = time.perf_counter() - t1
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"int8 ladder: {sum(batches8)} requests in {len(batches8)} "
+          f"batches, K1 launches {launches8[0]}, K3 launches "
+          f"{launches8[2]}; one served row vs a direct forward: max_abs_err "
+          f"{err:.3e} of {scale:.3e}; {t_int8:.1f} s [{name}]", flush=True)
+    n8 = len(batches8)
+    if launches8 != (cfg.n_layers * n8, 0, 6 * cfg.n_layers * n8, 0, 0):
+        raise AssertionError(f"launches K1-K5 {launches8} for {n8} int8 "
+                             f"batches of {cfg.n_layers} layers")
+    if tuple(got.shape) != (LADDER_BUCKET, cfg.d_model) or \
+            not torch.isfinite(got.float()).all() or err > BF16_TOL * scale:
+        raise AssertionError(f"int8 engine row: shape {tuple(got.shape)}, "
+                             f"error {err:.3e} of {scale:.3e}")
+    if [c.ns for c in cells8] != list(NS_LADDER) or not all(
+            np.isfinite(c.latency_s) and c.latency_s > 0 for c in cells8):
+        raise AssertionError(f"int8 ladder cells {cells8}")
+    rung_lines({c.ns: [dict(dataclasses.asdict(c), sentences_per_s=c.ns
+                            / c.latency_s)] for c in cells8}, "int8", name,
+               cpu_seen)
+    print(f"int8 saturation (NS={NS_LADDER[-1]}): "
+          f"{NS_LADDER[-1] / cells8[-1].latency_s:.1f} sentences/s; device "
+          f"memory: resident {resident8:,} B after the build, peak "
+          f"{peak8:,} B while serving, weight_bytes {weight_bytes8:,} "
+          f"[{name}]", flush=True)
+
+    # ---- K3 at every width the int8 ladder served, and the full batch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    widths = sorted({b * LADDER_BUCKET for b in batches8})
+    worst = 0.0
+    for M in widths:
+        for K, N in proj_shapes(cfg):
+            x, qw, qscale = int8_inputs(gen, M, K, N, torch.bfloat16)
+            out = i8.int8_matmul(x, qw, qscale)
+            ref = i8.int8_matmul_plain(x.float(), qw, qscale)
+            e = (out.float() - ref).abs().max().item()
+            mag = ref.abs().max().item()
+            if out.dtype != torch.bfloat16 or not e <= BF16_TOL * mag:
+                raise AssertionError(f"K3 disagrees with its plain version "
+                                     f"at the ladder's M={M} K={K} N={N}: "
+                                     f"{e:.3e} of {mag:.3e}")
+            worst = max(worst, e / mag)
+    print(f"K3 vs plain at the {len(widths)} widths the int8 ladder served "
+          f"(M = {widths[0]}..{widths[-1]}) x GECToR-base's "
+          f"{len(proj_shapes(cfg))} (K, N), bf16: worst max_abs_err "
+          f"{worst:.3e} of the output's max (tol {BF16_TOL} relative)",
+          flush=True)
+    full = torch.zeros((LADDER_BATCH, LADDER_BUCKET), dtype=torch.long,
+                       device="cuda")
+    for i, s in enumerate(sents[:LADDER_BATCH]):
+        full[i, :len(s)] = torch.from_numpy(s)
+    int8_hidden_gate(cfg, eng8.params, full,
+                     f"GECToR-base int8 B={LADDER_BATCH} bucket "
+                     f"{LADDER_BUCKET} (the ladder's full batch)")
+
+    # ---- one forward at the ladder's full batch, float and int8
+    for label, tree in (("float", eng.params), ("int8 K3", eng8.params)):
+        forward_profile(lambda: forward(cfg, tree, tokens=full, causal=False,
+                                        return_hidden=True),
+                        f"GECToR-base forward B={LADDER_BATCH} bucket "
+                        f"{LADDER_BUCKET} bf16, {label} (the ladder's full "
+                        f"batch)", name, top=4)
+
+    # ---- the serve CLI's ladder, once on the card
+    t2 = time.perf_counter()
+    serve.main(["--ladder", "1", "16"])
+    print(f"phase 20: grid {t_grid:.1f} s, int8 ladder {t_int8:.1f} s, "
+          f"serve --ladder {time.perf_counter() - t2:.1f} s, total "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, launches8
 
 
 def forward_profile(fn, label, name, n=5, top=8):
@@ -1748,6 +2032,11 @@ def main() -> int:
           f"{wallh:.3f} s = {n_tokh / wallh:.1f} tokens/s, request p50 "
           f"{hyb_served['latency_p50_s'] * 1e3:.3f} ms; weight_bytes "
           f"{hyb_bytes:,} [{name}]", flush=True)
+    del hparams
+    torch.cuda.empty_cache()
+
+    # ---- 20. the paper's ladder through the deploy lab, float and int8
+    ladder_launches, ladder8_launches = phase_paper_ladder(kernels, name)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -1759,7 +2048,9 @@ def main() -> int:
         return {"encoder": encoder, "decoder": dec_launches[i],
                 "encoder int8": enc8_launches[i],
                 "decoder int8": dec8_launches[i],
-                "decoder hybrid": hyb_launches[i]}
+                "decoder hybrid": hyb_launches[i],
+                "ladder float": ladder_launches[i],
+                "ladder int8": ladder8_launches[i]}
 
     def hybrid_row(times, err=None, checked_256=None):
         ms, plain_ms, lib_ms, bound_ms, bound_by = times

@@ -191,6 +191,8 @@ class ServingEngine:
         self.ec = engine_cfg              # guarded-by: init
         self.head_fn = head_fn            # guarded-by: init
         self._weight_bytes = params_bytes(self.params)   # guarded-by: init
+        # the continuous decoder is ROADMAP Queue 1 item 6: never active yet
+        self.continuous_active = False    # guarded-by: init
         self._q: "queue.Queue[_Request]" = queue.Queue()  # guarded-by: threadsafe
         self._admission = (AdmissionQueue(engine_cfg.max_inflight)  # guarded-by: threadsafe
                            if engine_cfg.max_inflight else None)
