@@ -18,8 +18,11 @@ Phases (each raises on failure; nothing is caught):
      and both against the same model in fp32, where K1's may be no worse
      than plain attention's within a stated factor;
   4. serve 64 sentences through ``ServingEngine(mode="encoder")`` with the
-     tag head, check the tags against direct ``predict_tags`` calls and
-     that every served batch launched K1 once per layer;
+     tag head, one captured program per (bucket, batch) (``warmup``
+     captures them), check the tags against direct ``predict_tags``
+     calls and, exactly, against direct uncaptured forwards of the same
+     batches, and that every served batch launched K1 once per layer
+     (a replay counts the launches its capture recorded);
   5. time K1, its plain version and ``scaled_dot_product_attention`` (the
      yardstick; the port never calls it) by the profiler's device time,
      at the encoder's shapes and Qwen2-0.5B's prefill, time one serving
@@ -37,10 +40,13 @@ Phases (each raises on failure; nothing is caught):
      plain attention's within a stated factor; where free-running greedy
      streams of the two bf16 paths part is reported, not gated;
   8. serve 48 requests through ``ServingEngine(mode="decoder")`` batch at
-     a time (greedy, sampled and eos-stopped), check every request's
-     tokens against a direct prefill + ``decode_segment`` call on the same
-     padded batch, the finish reasons, and that each batch launched K1
-     once per layer and K2 once per layer and decode step;
+     a time (greedy, sampled and eos-stopped), each batch's prefill and
+     decode one captured program: a first burst captures the sampled
+     programs, the measured burst replays every batch; check every
+     request's tokens in both bursts against a direct uncaptured prefill
+     + ``decode_segment`` call on the same padded batch, the finish
+     reasons, and that each batch launched K1 once per layer and K2 once
+     per layer and decode step;
   9. time K2 (both launches: the split pass and the merge), its plain
      version and SDPA by device time, one decode step and its kernels,
      and the decoder burst;
@@ -98,11 +104,41 @@ Phases (each raises on failure; nothing is caught):
      32) at NS = 1, 2, ..., 512, 3 bursts a rung: one record per profile
      with the JAX package's fields and schema, every cell's latency and
      rate finite and positive, every paper finding in the drift report,
-     and 12 K1 launches per batch served (warmup included); then
+     and 12 K1 launches per batch served (warmup included; every batch
+     a captured program); then
      ``run_ladder`` on the int8 encoder engine over the same ladder and
      sentences (12 K1 and 72 K3 launches a batch, one served row against
      a direct forward), each engine's resident and peak device memory
-     beside ``weight_bytes``, and ``serve --ladder 1 16`` on the card.
+     beside ``weight_bytes``, and ``serve --ladder 1 16`` on the card;
+ 21. (after phase 14) captured programs against their uncaptured calls,
+     bit for bit, the replay in sync debug mode "error", and both timed
+     (host-clock wall, kernels and device idle share by the profiler):
+     the GECToR-base encoder program at B=32 in buckets 32 and 128 and a
+     Qwen2-0.5B decode step at B=32, greedy and sampled;
+ 22. one Qwen2-0.5B row's bits against the batch it runs in, float and
+     int8 weights and KV: its prefill hidden state and first-token
+     logits for every join size the continuous loads can form (n =
+     1..16 in buckets 32/64/128, 1..32 in 256/512), padded as the engine
+     pads them to M >= 128 rows, must equal the widest join's; one
+     decode step's logits at widths 1-16 in caches of 48, 144, 272 and
+     528 slots must equal the cap's (16 or 32) at the cap's K2 split
+     count (the engine's ``decode_width``), and are printed beside at
+     K2's own split count for the width;
+ 23. Qwen2-0.5B at full width through the default continuous decoder
+     (lanes over buckets 32/64/128, the KV pool, adaptive width tiers,
+     ``warmup(sampled=True)`` capturing every program): 48 greedy and
+     sampled requests of mixed lengths arriving 2 ms apart; every
+     request's tokens, exactly, against the same load through fixed
+     width and batch at a time (the engine pads each prefill to the M
+     where phase 22 finds a row's bits independent of the batch), a
+     measured window that captures nothing, K1/K2/K3
+     launches against its prefill batches and segments, the
+     untouched-slot property bitwise on the pool, each width tier's
+     segment captured against uncaptured, and device memory; float,
+     then int8 weights and KV; then 32 staggered requests of 257-500
+     tokens in bucket 512 at max_batch 32, adaptive against fixed width
+     and batch at a time (the continuous engines' second pass, whose
+     occupancy moves across the width tiers), float and int8.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its design and
 its instantiations' registers), then as the last line
@@ -743,6 +779,44 @@ def direct_generate(cfg, params, toks, lens, temp, topk, seed, kv_quant=None):
         return torch.cat([first, rest], 1).cpu().numpy()
 
 
+def replay_diff(gc, key, fn, args, direct):
+    """Capture ``fn`` under ``key`` in ``gc`` (its warm-up run must equal
+    ``direct``, the same function called uncaptured), replay it in sync
+    debug mode "error" and return the replay's largest difference from
+    ``direct``."""
+    first = gc.run(key, fn, *args)        # warm-up run + capture
+    if max_diff(first, direct) != 0:
+        raise AssertionError(f"{key}: the warm-up run differs from the "
+                             f"direct call")
+    return max_diff(no_host_sync(lambda: gc.run(key, fn, *args)), direct)
+
+
+def served_logits_diff(cfg, params, toks, lens, kv_quant):
+    """The decoder engine's batch-at-a-time program up to its logits, on
+    one served batch: prefill into fresh caches of bucket + NEW_TOKENS
+    slots, the first-token logits, and the logits of one greedy decode
+    step, as a captured program against the same calls uncaptured.
+    Returns the largest logit difference."""
+    from repro_torch.models import forward, make_caches
+    from repro_torch.serving.graphs import GraphCache
+    B, bucket = toks.shape
+    tt = torch.from_numpy(toks).cuda()
+    lt = torch.from_numpy(lens).cuda()
+
+    def fn(t, ln):
+        caches = make_caches(cfg, B, bucket + NEW_TOKENS,
+                             dtype=torch.float32, kv_quant=kv_quant,
+                             device="cuda")
+        lg0, w = first_logits(cfg, params, t, ln, caches, False)
+        tok = lg0.argmax(-1).to(torch.int32)[:, None]
+        lg1 = forward(cfg, params, tokens=tok, positions=ln[:, None],
+                      caches=caches, mode="decode", head_w=w)[:, 0]
+        return {"first": lg0, "step": lg1}
+    with torch.inference_mode():
+        return replay_diff(GraphCache("cuda"), ("logits", bucket), fn,
+                           (tt, lt), fn(tt, lt))
+
+
 def reset_launches(kernels):
     for fn in kernels:
         fn.launches = 0
@@ -774,6 +848,7 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
     try:
         rng = np.random.default_rng(11)
         waves = []
+        logit_diff = 0.0
         for w, (lo, hi, bucket) in enumerate(spans):
             prompts, toks, lens = prompt_batch(rng, wave, lo, hi, bucket,
                                                cfg.vocab_size)
@@ -803,19 +878,33 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
                         top_k=int(topk[i]) or None, seed=int(seed[i])))
                     want.append((row, "length"))
             waves.append((prompts, sampling, want))
+            logit_diff = max(logit_diff, served_logits_diff(
+                cfg, eng.params, toks, lens, quant))
         eng.warmup(batch_sizes=[wave], buckets=ec.pad_buckets)
+
+        def burst():
+            out = []
+            for prompts, sampling, _ in waves:   # one burst per bucket
+                handles = [eng.generate(p, s)
+                           for p, s in zip(prompts, sampling)]
+                out.append([h.result(timeout=600) for h in handles])
+            return out
+        # warmup captures greedy batches only: a first burst captures the
+        # sampled ones (its results come from each capture's warm-up run),
+        # the measured burst replays every batch
+        primed = burst()
         eng.discard_samples()
         reset_launches(kernels)
+        replays0 = eng._graphs.replays
         t0 = time.perf_counter()
-        results = []
-        for prompts, sampling, _ in waves:   # one burst per bucket
-            handles = [eng.generate(p, s) for p, s in zip(prompts, sampling)]
-            results.append([h.result(timeout=600) for h in handles])
+        results = burst()
         wall = time.perf_counter() - t0
         launches = tuple(fn.launches for fn in kernels)
         served = eng.window()
         batch_sizes = list(eng.batch_sizes)   # the worker is idle now
         weight_bytes = eng.metrics()["weight_bytes"]
+        captures = eng._graphs.captures
+        replays = eng._graphs.replays - replays0
     finally:
         eng.close()
     n_batches = len(batch_sizes)
@@ -823,7 +912,10 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
     print(f"decoder engine{tag}: {sum(map(len, results))} requests in "
           f"{n_batches} batches {batch_sizes}; K1 launches {launches[0]}, "
           f"K2 launches {launches[1]}, K3/K4 launches {launches[2:4]}, K5 "
-          f"launches {launches[4]}", flush=True)
+          f"launches {launches[4]}; {captures} programs captured, "
+          f"{replays} replays", flush=True)
+    if replays != n_batches:
+        raise AssertionError(f"{replays} replays for {n_batches} batches")
     if batch_sizes != [wave] * len(spans):
         raise AssertionError(f"waves were not served as one batch each: "
                              f"{batch_sizes}")
@@ -836,8 +928,11 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
         raise AssertionError(f"launches K1/K2/K3/K4/K5 {launches} != "
                              f"{want}")
     n_tok = 0
-    for (_, _, want), got in zip(waves, results):
-        for (w_tokens, w_reason), r in zip(want, got):
+    for (_, _, want), got, first in zip(waves, results, primed):
+        for (w_tokens, w_reason), r, r0 in zip(want, got, first):
+            if not np.array_equal(r0.tokens, w_tokens):
+                raise AssertionError(f"capturing burst {r0.tokens} != "
+                                     f"direct {w_tokens}")
             if not (np.array_equal(r.tokens, w_tokens)
                     and r.finish_reason == w_reason):
                 raise AssertionError(
@@ -845,10 +940,16 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
                     f"direct {w_tokens} ({w_reason})")
             n_tok += len(r.tokens)
     n_req = wave * len(spans)
-    print(f"decoder engine{tag} tokens and finish reasons equal direct "
-          f"prefill + decode_segment calls on the same batches: {n_req} of "
-          f"{n_req} ({n_tok} tokens); decode_segment ran in sync debug mode "
-          f"'error' (no host sync)", flush=True)
+    print(f"decoder engine{tag} tokens and finish reasons (captured "
+          f"programs) equal direct uncaptured prefill + decode_segment "
+          f"calls on the same batches: {n_req} of {n_req} ({n_tok} tokens); "
+          f"decode_segment ran in sync debug mode 'error' (no host sync); "
+          f"first-token and decode-step logits of each wave's batch, "
+          f"captured vs uncaptured: max difference {logit_diff}",
+          flush=True)
+    if logit_diff != 0:
+        raise AssertionError(f"captured logits differ from uncaptured ones "
+                             f"by {logit_diff}")
     return launches, served, n_tok, wall, batch_sizes, weight_bytes
 
 
@@ -1325,6 +1426,7 @@ def phase_encoder_int8_engine(cfg, params, kernels, rng):
     ``predict_tags`` calls on the engine's quantized tree. Returns
     (launches of K1/K2/K3/K4, batch sizes, weight bytes)."""
     from repro_torch.core.gector import predict_tags, tag_head
+    from repro_torch.models import forward
     from repro_torch.quant import params_bytes
     from repro_torch.serving import EngineConfig, ServingEngine
     sents = sentences(rng, 32, 65, 120, cfg.vocab_size)
@@ -1343,8 +1445,25 @@ def phase_encoder_int8_engine(cfg, params, kernels, rng):
         qparams = eng.params
         toks, mask = padded(sents, 128)
         want = predict_tags(cfg, qparams, toks, mask)
+        with torch.inference_mode():        # the same batch, uncaptured
+            tt = torch.from_numpy(toks).cuda()
+            hid = forward(cfg, qparams["encoder"], tokens=tt, causal=False,
+                          return_hidden=True)
+            direct = tag_head(qparams, hid,
+                              torch.from_numpy(mask).cuda()).cpu()
+        replays = eng._graphs.replays
     finally:
         eng.close()
+    if batch_sizes != [32] or replays != 1:
+        raise AssertionError(f"not one captured batch: {batch_sizes}, "
+                             f"{replays} replays")
+    diff = int((torch.stack(results) != direct).sum())
+    print(f"int8 engine tags (a captured program) vs a direct uncaptured "
+          f"forward + tag_head of the batch: {diff} tags differ",
+          flush=True)
+    if diff:
+        raise AssertionError(f"{diff} served int8 tags differ from the "
+                             f"direct call")
     n = len(batch_sizes)
     print(f"encoder engine (int8 weights): {len(results)} requests in {n} "
           f"batches {batch_sizes}; K1 launches {launches[0]}, K3 launches "
@@ -1702,6 +1821,573 @@ def forward_profile(fn, label, name, n=5, top=8):
     return wall, busy
 
 
+# ------------------------------------------------ captured programs
+CONT_BATCH = 16                    # max_batch of the continuous phase
+CONT_SPANS = ((8, 32, 32), (33, 64, 64), (65, 120, 128))
+CONT_GAP_S = 0.002                 # arrival gap of the staggered load
+LONG_BATCH = 32                    # max_batch of the long-bucket check
+LONG_SPAN = (257, 500, 512)        # its prompt lengths and bucket
+LONG_GAP_S = 0.005                 # and its arrival gap
+
+
+def sync_wall_ms(fn, n=10, warmup=2):
+    """Host-clock ms of ``fn`` run and synchronized, mean over ``n``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def program_reading(fn, n=3, n_wall=10):
+    """(wall ms by the host clock, mean of ``n_wall`` calls; kernel ms by
+    the profiler over ``n`` calls, or None; device idle share or None) of
+    one synchronized call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    wall = sync_wall_ms(fn, n=n_wall)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+    rows = kernel_rows(prof, n)
+    busy = sum(r[0] for r in rows) if rows else None
+    idle = None if busy is None else max(0.0, 1 - busy / wall)
+    return wall, busy, idle
+
+
+def fmt_reading(r):
+    wall, busy, idle = r
+    return (f"wall {wall:.4f} ms, kernels {fmt_ms(busy)}, device idle "
+            + ("not measured" if idle is None else f"{idle:.1%}"))
+
+
+def max_diff(a, b):
+    """Largest |a - b| over float tensors (or trees of them), as a float;
+    integer tensors count their unequal elements instead."""
+    if isinstance(a, dict):
+        return max(max_diff(a[k], b[k]) for k in a)
+    if a.is_floating_point():
+        return (a.float() - b.float()).abs().max().item()
+    return float((a != b).sum().item())
+
+
+def captured_against_direct(gc, key, fn, args, direct, label, name):
+    """Capture ``fn`` under ``key`` in ``gc``, replay it in sync debug
+    mode "error", and hold the replay against ``direct`` (the same
+    function called uncaptured) bit for bit; print and return both
+    readings (captured, uncaptured)."""
+    diff = replay_diff(gc, key, fn, args, direct)
+    print(f"{label}: captured replay vs direct uncaptured call: max "
+          f"difference {diff} (replayed in sync debug mode 'error')",
+          flush=True)
+    if diff != 0:
+        raise AssertionError(f"{label}: captured program differs from the "
+                             f"uncaptured call by {diff}")
+    cap = program_reading(lambda: gc.run(key, fn, *args))
+    unc = program_reading(lambda: fn(*args))
+    print(f"  captured:   {fmt_reading(cap)} [{name}]", flush=True)
+    print(f"  uncaptured: {fmt_reading(unc)} [{name}]", flush=True)
+    return cap, unc
+
+
+def phase_captured_programs(cfg, params, qcfg, qparams, name):
+    """21. One captured program against its uncaptured call, bit for bit,
+    and both timed: a GECToR-base forward with the tag head at B=32 in
+    buckets 32 and 128 (the engine's encoder program) and a Qwen2-0.5B
+    decode step at B=32, L=144 (forward in decode mode and token
+    selection), greedy and sampled. Returns {label: (captured,
+    uncaptured)} readings."""
+    from repro_torch.core.gector import tag_head
+    from repro_torch.models import forward, make_caches, sample_logits
+    from repro_torch.serving.graphs import GraphCache
+    gc = GraphCache("cuda")
+    out = {}
+    rng = np.random.default_rng(21)
+    with torch.inference_mode():
+        for bucket in (32, 128):
+            toks, mask = padded(sentences(rng, 32, 8, bucket,
+                                          cfg.vocab_size), bucket)
+            tt = torch.from_numpy(toks).cuda()
+            mt = torch.from_numpy(mask).cuda()
+
+            def enc(t, m):
+                hid = forward(cfg, params["encoder"], tokens=t,
+                              causal=False, return_hidden=True)
+                return {"hidden": hid, "tags": tag_head(params, hid, m)}
+            label = f"GECToR-base encoder program B=32 bucket {bucket} bf16"
+            out[label] = captured_against_direct(
+                gc, ("enc", bucket), enc, (tt, mt), enc(tt, mt), label, name)
+        B, bucket = DECODE_MAIN["B"], 128
+        _, toks, lens = prompt_batch(rng, B, 8, 120, bucket, qcfg.vocab_size)
+        lens_t = torch.from_numpy(lens).cuda()
+        caches = make_caches(qcfg, B, bucket + NEW_TOKENS,
+                             dtype=torch.float32, device="cuda")
+        logits, w = first_logits(qcfg, qparams,
+                                 torch.from_numpy(toks).cuda(), lens_t,
+                                 caches, False)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        pos = lens_t[:, None]
+        temp = torch.full((B,), 0.8, device="cuda")
+        topk = torch.full((B,), 50, dtype=torch.int32, device="cuda")
+        seed = torch.arange(B, dtype=torch.int32, device="cuda")
+
+        def step(t, p, tm, tk, sd):
+            # the step rewrites its own KV slot with the same values, so
+            # repeated calls see the same cache
+            lg = forward(qcfg, qparams, tokens=t, positions=p,
+                         caches=caches, mode="decode", head_w=w)[:, 0]
+            return {"logits": lg,
+                    "tok": sample_logits(lg, temperature=tm, top_k=tk,
+                                         seed=sd, positions=p[:, 0] + 1)}
+        for mode, sargs in (("greedy", (None, None, None)),
+                            ("sampled", (temp, topk, seed))):
+            label = (f"Qwen2-0.5B decode step program B={B} "
+                     f"L={bucket + NEW_TOKENS} bf16, {mode}")
+            args = (tok, pos, *sargs)
+            out[label] = captured_against_direct(
+                gc, ("step", mode), step, args, step(*args), label, name)
+        del caches
+    print(f"phase 21: {gc.captures} programs captured, {gc.replays} "
+          f"replays", flush=True)
+    return out
+
+
+# (bucket, widest batch) of phase 22's prefill check: the continuous
+# phase's buckets at its max_batch, and the long buckets at the long
+# continuous check's
+WIDTH_BUCKETS = ((32, CONT_BATCH), (64, CONT_BATCH), (128, CONT_BATCH),
+                 (256, LONG_BATCH), (512, LONG_BATCH))
+STEP_BUCKETS = (32, 128, 256, 512)   # decode-step check: L = bucket + 16
+
+
+def slice_caches(caches, w):
+    """A copy of the first ``w`` rows of a ``make_caches`` tree."""
+    return {b: {k: t[:, :w].clone() for k, t in blk.items()}
+            for b, blk in caches.items()}
+
+
+def phase_width_determinism(cfg, params, label, kv_quant=None):
+    """22. One Qwen2-0.5B row's bits against the batch it runs in (bf16
+    weights, or int8 weights and KV).
+
+    Prefill: for each (bucket, cap) of ``WIDTH_BUCKETS`` and every join
+    size n = 1..cap, the join's n prompts padded as the engine pads them
+    (copies of row 0 up to ``PREFILL_MIN_M`` rows of M): row 0's prefill
+    hidden state and first-token logits against the same row at n = cap.
+    Every such n must give the same bits. The unpadded joins below
+    ``PREFILL_MIN_M`` rows are printed beside (the fault the padding
+    avoids).
+
+    Decode: in each bucket of ``STEP_BUCKETS``, the caches of one
+    width-32 prefill cut to widths 1..cap (cap 16 and 32) and one
+    teacher-forced decode step: row 0's logits against the same row at
+    the cap, once at K2's own split count for the width
+    (``decode_splits(width, ...)``) and once at the cap's
+    (``decode_width=cap``, as the engine runs). The second must give the
+    same bits at every width. Returns (prefill diffs {(bucket, n):
+    (hidden, logits)}, decode diffs {(bucket, cap, width): (own, cap's)})."""
+    from repro_torch.kernels.decode_attention import decode_splits
+    from repro_torch.models import forward, make_caches
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    from repro_torch.serving.engine import PREFILL_MIN_M, ServingEngine
+    rng = np.random.default_rng(22)
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    hkv = cfg.n_kv_heads
+    pre, dec = {}, {}
+
+    def prefill_row0(tt, lt, idx, L):
+        t = tt[idx]
+        caches = make_caches(cfg, len(idx), L, dtype=torch.float32,
+                             kv_quant=kv_quant, device="cuda")
+        hid = forward(cfg, params, tokens=t, caches=caches, mode="full",
+                      return_hidden=True)
+        last = hid[0, lt[0] - 1]
+        return last.float(), lm_head_apply(cfg, None, last[None, None],
+                                           w=w)[0, 0]
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for bucket, cap in WIDTH_BUCKETS:
+            _, toks, lens = prompt_batch(rng, cap, 8, bucket - 8, bucket,
+                                         cfg.vocab_size)
+            tt = torch.from_numpy(toks).cuda()
+            lt = torch.from_numpy(lens).cuda()
+            L = bucket + NEW_TOKENS
+            ref = prefill_row0(tt, lt, list(range(cap)), L)
+            small = []
+            for n in range(1, cap + 1):
+                rows = ServingEngine._prefill_rows(n, bucket)
+                got = prefill_row0(tt, lt, list(range(n)) + [0] * (rows - n),
+                                   L)
+                pre[(bucket, n)] = tuple((a - b).abs().max().item()
+                                         for a, b in zip(got, ref))
+                if n * bucket < PREFILL_MIN_M:
+                    got = prefill_row0(tt, lt, list(range(n)), L)
+                    small.append(
+                        f"n={n} (M={n * bucket}) hidden "
+                        + ", logits ".join(f"{(a - b).abs().max().item():.3e}"
+                                           for a, b in zip(got, ref)))
+            worst = [max(pre[(bucket, n)][k] for n in range(1, cap + 1))
+                     for k in (0, 1)]
+            ms = sorted({ServingEngine._prefill_rows(n, bucket) * bucket
+                         for n in range(1, cap + 1)})
+            print(f"width determinism {label}: bucket {bucket}, row 0 of "
+                  f"joins n = 1..{cap} padded as the engine pads them (M = "
+                  f"{ms[0]}..{ms[-1]}, {len(ms)} values) vs n = {cap}: max "
+                  f"prefill hidden diff {worst[0]:.3e}, first-token logits "
+                  f"{worst[1]:.3e}"
+                  + (f"; unpadded {'; '.join(small)}" if small else ""),
+                  flush=True)
+        for bucket in STEP_BUCKETS:
+            _, toks, lens = prompt_batch(rng, 32, 8, bucket - 8, bucket,
+                                         cfg.vocab_size)
+            tt = torch.from_numpy(toks).cuda()
+            lt = torch.from_numpy(lens).cuda()
+            L = bucket + NEW_TOKENS
+            caches = make_caches(cfg, 32, L, dtype=torch.float32,
+                                 kv_quant=kv_quant, device="cuda")
+            hid = forward(cfg, params, tokens=tt, caches=caches, mode="full",
+                          return_hidden=True)
+            last = hid[torch.arange(32, device="cuda"), lt - 1][:, None]
+            tok = lm_head_apply(cfg, None, last, w=w)[:, 0].argmax(-1)
+
+            def step(width, dw):
+                return forward(cfg, params,
+                               tokens=tok[:width, None].to(torch.int32),
+                               positions=lt[:width, None],
+                               caches=slice_caches(caches, width),
+                               mode="decode", head_w=w,
+                               decode_width=dw)[0, 0]
+            for cap in (16, 32):
+                ref = step(cap, cap)
+                for width in (1, 2, 4, 8, 16):
+                    if width >= cap:
+                        continue
+                    d = ((step(width, None) - ref).abs().max().item(),
+                         (step(width, cap) - ref).abs().max().item())
+                    dec[(bucket, cap, width)] = d
+                    print(f"width determinism {label}: L={L}, decode-step "
+                          f"logits of row 0 at width {width} vs {cap}: at "
+                          f"K2's own {decode_splits(width, hkv, L)[0]} "
+                          f"splits {d[0]:.3e}; at the cap's "
+                          f"{decode_splits(cap, hkv, L)[0]} (decode_width="
+                          f"{cap}) {d[1]:.3e}", flush=True)
+            del caches
+    bad_pre = [k for k, d in pre.items() if d != (0.0, 0.0)]
+    bad_dec = [k for k, d in dec.items() if d[1] != 0.0]
+    own = [k for k, d in dec.items() if d[0] != 0.0]
+    print(f"width determinism {label}: {len(pre)} padded joins, "
+          f"{len(pre) - len(bad_pre)} bit-equal to the widest; {len(dec)} "
+          f"decode widths at the cap's split count, "
+          f"{len(dec) - len(bad_dec)} bit-equal; at K2's own split count "
+          f"{len(dec) - len(own)} bit-equal"
+          + (f" (differ: (bucket, cap, width) {own})" if own else "")
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if bad_pre:
+        raise AssertionError(f"{label}: a padded join's row 0 changes with "
+                             f"the join size at (bucket, n) {bad_pre}")
+    if bad_dec:
+        raise AssertionError(f"{label}: a decode row changes with the width "
+                             f"at the cap's split count at {bad_dec}")
+    return pre, dec
+
+
+def cont_load(cfg, seed):
+    """The continuous phase's 48 requests: 16 per (shortest, longest
+    prompt, bucket) of ``CONT_SPANS``, every other one sampled
+    (temperature 0.8, top_k 50, its own seed), shuffled."""
+    from repro_torch.serving.api import SamplingParams
+    rng = np.random.default_rng(seed)
+    load = []
+    for lo, hi, _ in CONT_SPANS:
+        for i in range(16):
+            p = rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+            sp = (SamplingParams(temperature=0.8, top_k=50,
+                                 seed=len(load)) if i % 2 else
+                  SamplingParams())
+            load.append((p, sp))
+    order = rng.permutation(len(load))
+    return [load[i] for i in order]
+
+
+def serve_load(eng, load, gap_s):
+    """Submit ``load`` with ``gap_s`` between arrivals; wait for every
+    result. Returns (results, wall seconds)."""
+    t0 = time.perf_counter()
+    handles = []
+    for p, sp in load:
+        handles.append(eng.generate(p, sp))
+        if gap_s:
+            time.sleep(gap_s)
+    results = [h.result(timeout=600) for h in handles]
+    return results, time.perf_counter() - t0
+
+
+def untouched_slots(eng, bucket):
+    """The pool's untouched-slot property on the card, bitwise: for
+    several sets of live slots, one compacted segment (the engine's
+    captured program, as a lane runs it) must leave every other slot's
+    bytes as they were and change the live ones. Returns the number of
+    sets checked."""
+    from repro_torch.serving.scheduler import pick_tier
+    pool = eng._pools[bucket]
+    n = eng.ec.max_batch
+    sets = [[0], [1, 3], [2, 5, 7, 9], list(range(0, n, 2)),
+            list(range(3, n))]
+    for live in sets:
+        width = pick_tier(len(live), eng._tiers)
+        if width >= n:
+            continue
+        before = {(b, k): x.clone() for b, blk in pool.caches.items()
+                  for k, x in blk.items()}
+        rows = (np.full((width, 1), 7, np.int32),
+                np.full((width, 1), 5, np.int32),
+                np.arange(width) < len(live), np.full(width, 3, np.int32),
+                np.full(width, -1, np.int32))
+        key = ("cont_compact", bucket, width, False)
+        if key not in eng._graphs:
+            raise AssertionError(f"{key} was not captured by warmup()")
+        eng._segment_call(bucket, width, rows, slots=live)
+        torch.cuda.synchronize()
+        others = [s for s in range(n) if s not in live]
+        changed = False
+        for (b, k), x in before.items():
+            now = pool.caches[b][k]
+            if not torch.equal(now[:, others], x[:, others]):
+                raise AssertionError(f"slots {others} changed in {b}/{k} "
+                                     f"by a segment over slots {live}")
+            changed |= not torch.equal(now[:, live], x[:, live])
+        if not changed:
+            raise AssertionError(f"a segment over slots {live} wrote "
+                                 f"nothing")
+    return len(sets)
+
+
+def phase_continuous(cfg, params, kernels, name, *, quant=None):
+    """23. Qwen2-0.5B at full width through the default continuous
+    decoder config (lanes over buckets 32/64/128, the KV pool, adaptive
+    width tiers; max_batch ``CONT_BATCH``), every program captured by
+    ``warmup(sampled=True)``: 48 greedy and sampled requests of mixed
+    lengths arriving ``CONT_GAP_S`` apart. The same load through
+    ``segment_width="fixed"`` and through the batch-at-a-time engine
+    (one wave per bucket); every request's tokens against both; the
+    measured window compile-clean; K1/K2/K3 launches against the
+    window's prefill batches and segments; the untouched-slot property
+    on the pool's bytes; each tier's segment captured against
+    uncaptured. ``quant="int8"`` serves int8 weights and KV. Every
+    request's tokens must be the same in all three engines. Returns the
+    window's K1..K5 launches."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    tag = " int8 W+KV" if quant else ""
+    load = cont_load(cfg, 23)
+    base = dict(mode="decoder", max_batch=CONT_BATCH,
+                pad_buckets=tuple(b for _, _, b in CONT_SPANS),
+                max_new_tokens=NEW_TOKENS, weight_quant=quant,
+                kv_quant=quant)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    eng = ServingEngine(cfg, params, EngineConfig(**base), device="cuda")
+    try:
+        t0 = time.perf_counter()
+        eng.warmup(sampled=True)
+        t_warm = time.perf_counter() - t0
+        compiles = eng.metrics()["jit_compiles"]
+        resident = torch.cuda.memory_allocated() - mem0
+        eng.window()
+        reset_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        results, wall = serve_load(eng, load, CONT_GAP_S)
+        launches = tuple(fn.launches for fn in kernels)
+        win = eng.window()
+        peak = torch.cuda.max_memory_allocated() - mem0
+        print(f"continuous{tag}: warmup captured {compiles} programs in "
+              f"{t_warm:.1f} s; 48 requests in {wall:.3f} s, "
+              f"{sum(len(r.tokens) for r in results)} tokens; window: "
+              f"jit_compiles {win['jit_compiles']}, prefill batches "
+              f"{win['prefill_batches']}, decode segments "
+              f"{win['decode_segments']}, joins mid-flight "
+              f"{win['joins_mid_flight']}, occupancy mean "
+              f"{win['batch_occupancy_mean']:.2f}; K1..K5 launches "
+              f"{launches} [{name}]", flush=True)
+        for b, lane in win["lanes"].items():
+            print(f"  lane {b}: segments {lane['decode_segments']} "
+                  f"(compacted {lane['compact_segments']}), joins "
+                  f"{lane['joins']}, tier_hist {lane['tier_hist']}, "
+                  f"kv_bytes {lane['kv_bytes']:,}", flush=True)
+        print(f"continuous{tag}: device memory resident after warmup "
+              f"{resident:,} B, peak while serving {peak:,} B, "
+              f"weight_bytes {win['weight_bytes']:,} [{name}]", flush=True)
+        if win["jit_compiles"] != 0:
+            raise AssertionError(f"the measured window built "
+                                 f"{win['jit_compiles']} programs")
+        n_layers = cfg.n_layers
+        steps = eng.ec.decode_segment * win["decode_segments"]
+        want = (n_layers * win["prefill_batches"], n_layers * steps,
+                6 * n_layers * (win["prefill_batches"] + steps)
+                if quant else 0, 0, 0)
+        if launches != want:
+            raise AssertionError(f"continuous launches K1..K5 {launches} "
+                                 f"!= {want}")
+        n_sets = untouched_slots(eng, 128)
+        print(f"continuous{tag}: untouched-slot property held bitwise on "
+              f"the bucket-128 pool for {n_sets} sets of live slots",
+              flush=True)
+        t0 = time.perf_counter()
+        tier_timings(eng, 128, name, tag)
+        print(f"continuous{tag}: tier timings took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        eng.close()
+    t0 = time.perf_counter()
+    streams = {"adaptive": [r.tokens for r in results]}
+    for label, kw, gap in (("fixed", dict(segment_width="fixed"),
+                            CONT_GAP_S),
+                           ("batch at a time", dict(
+                               continuous=False, batch_window_ms=200.0), 0)):
+        ref = ServingEngine(cfg, params, EngineConfig(**dict(base, **kw)),
+                            device="cuda")
+        try:
+            if label == "fixed":       # programs captured as they come
+                got, _ = serve_load(ref, load, gap)
+            else:
+                got = []
+                by_bucket = {}
+                for i, (p, sp) in enumerate(load):
+                    by_bucket.setdefault(ref._bucket(len(p)), []).append(i)
+                res = {}
+                for idx in by_bucket.values():   # one wave per bucket
+                    hs = [(i, ref.generate(*load[i])) for i in idx]
+                    res.update((i, h.result(timeout=600)) for i, h in hs)
+                got = [res[i] for i in range(len(load))]
+        finally:
+            ref.close()
+        streams[label] = [r.tokens for r in got]
+    compare_streams(streams, f"continuous{tag}")
+    print(f"continuous{tag}: reference engines took "
+          f"{time.perf_counter() - t0:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def compare_streams(streams, what):
+    """Every request's tokens of the "adaptive" engine against the
+    "fixed" and "batch at a time" ones', exactly."""
+    for label in ("fixed", "batch at a time"):
+        same = [np.array_equal(a, b) for a, b in
+                zip(streams["adaptive"], streams[label])]
+        first = [int(np.argmin(np.asarray(a) == np.asarray(b)))
+                 for a, b, s in zip(streams["adaptive"], streams[label],
+                                    same) if not s]
+        print(f"{what} adaptive vs {label}: {sum(same)} of {len(same)} "
+              f"requests token-identical"
+              + (f"; first differing token at {sorted(first)}"
+                 if first else ""), flush=True)
+        if first:
+            raise AssertionError(f"{what}: {len(first)} requests differ "
+                                 f"from the {label} engine")
+
+
+def phase_continuous_long(cfg, params, name, *, quant=None):
+    """23, long bucket. ``LONG_BATCH`` greedy and sampled requests of
+    ``LONG_SPAN`` tokens, each with its own budget of 1-16 new tokens,
+    arriving ``LONG_GAP_S`` apart in one bucket of 512 (caches of 528
+    slots, where K2's own split count would be 17, 9 or 5 by width),
+    through the default continuous decoder at max_batch ``LONG_BATCH``.
+    The adaptive and fixed engines serve the load twice (the first pass
+    captures the programs as they come, the second replays them, so
+    occupancy, and with it the width tier, moves); every request's
+    tokens of the second pass against fixed width and batch at a time,
+    exactly."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.api import SamplingParams
+    tag = " int8 W+KV" if quant else ""
+    lo, hi, bucket = LONG_SPAN
+    rng = np.random.default_rng(24)
+    load = []
+    for i in range(LONG_BATCH):
+        p = rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+        budget = int(rng.integers(1, NEW_TOKENS + 1))
+        load.append((p, SamplingParams(temperature=0.8, top_k=50, seed=i,
+                                       max_new_tokens=budget) if i % 2
+                     else SamplingParams(max_new_tokens=budget)))
+    base = dict(mode="decoder", max_batch=LONG_BATCH, pad_buckets=(bucket,),
+                max_new_tokens=NEW_TOKENS, weight_quant=quant,
+                kv_quant=quant)
+    t0 = time.perf_counter()
+    streams = {}
+    for label, kw, passes in (("adaptive", {}, 2),
+                              ("fixed", dict(segment_width="fixed"), 2),
+                              ("batch at a time", dict(
+                                  continuous=False, batch_window_ms=200.0),
+                               1)):
+        eng = ServingEngine(cfg, params, EngineConfig(**dict(base, **kw)),
+                            device="cuda")
+        try:
+            for _ in range(passes):
+                eng.window()
+                results, _ = serve_load(
+                    eng, load, LONG_GAP_S if passes == 2 else 0)
+            win = eng.window()
+        finally:
+            eng.close()
+        streams[label] = [r.tokens for r in results]
+        if label == "adaptive":
+            lane = win["lanes"][bucket]
+            print(f"continuous long{tag}: bucket {bucket}, {LONG_BATCH} "
+                  f"requests of {lo}..{hi} tokens, budgets 1..{NEW_TOKENS}, "
+                  f"{LONG_GAP_S * 1e3:.0f} ms apart; the adaptive engine's "
+                  f"second pass: segments {lane['decode_segments']} "
+                  f"(compacted {lane['compact_segments']}), joins "
+                  f"{lane['joins']}, tier_hist {lane['tier_hist']}, "
+                  f"{win['jit_compiles']} programs captured", flush=True)
+    compare_streams(streams, f"continuous long{tag}")
+    print(f"continuous long{tag}: three engines took "
+          f"{time.perf_counter() - t0:.1f} s [{name}]", flush=True)
+
+
+def tier_timings(eng, bucket, name, tag):
+    """Each width tier's decode segment (``decode_segment`` steps) of the
+    engine's bucket, captured (a replay of its program): wall, kernels
+    and device idle share; at the smallest and the largest tier also the
+    same program called uncaptured."""
+    for width in eng._tiers:
+        slots = list(range(width))
+        rows = (np.full((width, 1), 7, np.int32),
+                np.full((width, 1), 5, np.int32), np.ones(width, bool),
+                np.full(width, 99, np.int32), np.full(width, -1, np.int32))
+        compact = width < eng.ec.max_batch
+        kw = dict(slots=slots) if compact else {}
+        cap = program_reading(lambda: eng._segment_call(bucket, width, rows,
+                                                        **kw), n_wall=5)
+        if width not in (eng._tiers[0], eng._tiers[-1]):
+            print(f"continuous{tag} segment bucket {bucket} width {width} "
+                  f"({eng.ec.decode_segment} steps): captured "
+                  f"{fmt_reading(cap)} [{name}]", flush=True)
+            continue
+        fn = eng._segment_fn(bucket)
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+               for a in rows]
+        idx = (torch.tensor(slots, dtype=torch.int64, device="cuda")
+               if compact else None)
+        src = (torch.arange(width, dtype=torch.int64, device="cuda")
+               if compact else None)
+
+        def direct():
+            with torch.inference_mode():
+                return fn(*dev, None, None, None, idx, src)
+        unc = program_reading(direct, n=1, n_wall=3)
+        print(f"continuous{tag} segment bucket {bucket} width {width} "
+              f"({eng.ec.decode_segment} steps): captured "
+              f"{fmt_reading(cap)}; uncaptured {fmt_reading(unc)} "
+              f"[{name}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1816,11 +2502,13 @@ def main() -> int:
             f"{1 - p_agree:.4f}")
 
     # ---- 4. the encoder engine: the port's main path
-    eng = ServingEngine(cfg, params, EngineConfig(mode="encoder"),
+    eng = ServingEngine(cfg, params, EngineConfig(mode="encoder",
+                                                  batch_window_ms=200.0),
                         head_fn=tag_head, device="cuda")
     try:
         buckets = (32, 64, 128)
         eng.warmup(buckets=buckets)
+        enc_captures = eng._graphs.captures
         eng.discard_samples()
         waves = [sentences(rng, 22, 8, 32, cfg.vocab_size),
                  sentences(rng, 21, 33, 64, cfg.vocab_size),
@@ -1839,12 +2527,34 @@ def main() -> int:
         enc_k5_launches = rs.rglru_scan.launches
         served = eng.window()
         batch_sizes = list(eng.batch_sizes)   # the worker is idle now
+        enc_replays = eng._graphs.replays
     finally:
         eng.close()
     n_batches = len(batch_sizes)
     print(f"served {len(results)} requests in {n_batches} batches "
           f"{batch_sizes}; K1 launches {launches}, K3/K4 launches "
-          f"{enc_mm_launches}", flush=True)
+          f"{enc_mm_launches}; {enc_captures} programs captured by "
+          f"warmup, {enc_replays} replays", flush=True)
+    if batch_sizes != [len(w) for w in waves] or enc_replays < n_batches:
+        raise AssertionError(f"waves were not served as one captured "
+                             f"batch each: {batch_sizes}, {enc_replays} "
+                             f"replays")
+    # the served tags against direct uncaptured calls on the same batches
+    diff = 0
+    with torch.inference_mode():
+        for w, wave in enumerate(waves):
+            bucket = buckets[w]
+            t1, m1 = padded(wave, bucket)
+            t1, m1 = torch.from_numpy(t1).cuda(), torch.from_numpy(m1).cuda()
+            hid1 = forward(cfg, params["encoder"], tokens=t1, causal=False,
+                           return_hidden=True)
+            want = tag_head(params, hid1, m1).cpu()
+            got = torch.stack(results[sum(map(len, waves[:w])):][:len(wave)])
+            diff += int((got != want).sum())
+    print(f"served tags vs direct uncaptured forward + tag_head on the same "
+          f"batches: {diff} tags differ", flush=True)
+    if diff:
+        raise AssertionError(f"{diff} served tags differ from direct calls")
     if launches != cfg.n_layers * n_batches or launches == 0:
         raise AssertionError(f"K1 launched {launches} times for "
                              f"{n_batches} batches of {cfg.n_layers} layers")
@@ -1898,7 +2608,8 @@ def main() -> int:
                         return_hidden=True),
         lambda: forward(cfg, params["encoder"], tokens=tt, causal=False,
                         return_hidden=True, plain_attention=True), name)
-    print(f"serve burst: {served['requests']} requests, p50 "
+    print(f"serve burst (phase 4, batch window 200 ms): "
+          f"{served['requests']} requests, p50 "
           f"{served['latency_p50_s'] * 1e3:.3f} ms, p95 "
           f"{served['latency_p95_s'] * 1e3:.3f} ms, mean batch "
           f"{served['batch_size_mean']:.2f} [{name}]", flush=True)
@@ -1981,6 +2692,21 @@ def main() -> int:
     phase_decode_step(qcfg, qq, name, kv_quant="int8", modes=(False,),
                       label=" int8 W+KV")
 
+    # ---- 21. captured programs against uncaptured calls, and timed
+    phase_captured_programs(cfg, params, qcfg, qparams, name)
+
+    # ---- 22. one row's bits across batch widths, float and int8
+    phase_width_determinism(qcfg, qparams, "float")
+    phase_width_determinism(qcfg, qq, "int8 W+KV", kv_quant="int8")
+
+    # ---- 23. the default continuous decoder, float and int8
+    cont = phase_continuous(qcfg, qparams, kernels, name)
+    cont8 = phase_continuous(qcfg, qparams, kernels, name, quant="int8")
+    phase_continuous_long(qcfg, qparams, name)
+    phase_continuous_long(qcfg, qparams, name, quant="int8")
+    del qq, gq
+    torch.cuda.empty_cache()
+
     # ---- 15. K5 against its plain version
     k5_err, k5_checked = phase_scan_parity(rs)
 
@@ -2050,7 +2776,9 @@ def main() -> int:
                 "decoder int8": dec8_launches[i],
                 "decoder hybrid": hyb_launches[i],
                 "ladder float": ladder_launches[i],
-                "ladder int8": ladder8_launches[i]}
+                "ladder int8": ladder8_launches[i],
+                "continuous": cont[i],
+                "continuous int8": cont8[i]}
 
     def hybrid_row(times, err=None, checked_256=None):
         ms, plain_ms, lib_ms, bound_ms, bound_by = times

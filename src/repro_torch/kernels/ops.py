@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_attention import BLOCK_K as DECODE_BLOCK_K
-from repro_torch.kernels.decode_attention import H100_SMS, decode_attention
+from repro_torch.kernels.decode_attention import (H100_SMS, decode_attention,
+                                                  decode_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  kernel_tiles)
 from repro_torch.kernels.int8_matmul import (cache_matmul, int8_matmul,
@@ -65,13 +66,18 @@ def mha_prefill(q, k, v, *, causal=True, window=None, softcap=None,
                            softcap=softcap, kv_len=kv_len, bq=bq, bk=bk)
 
 
-def gqa_decode(q, k, v, q_pos, kv_pos, *, window=None, softcap=None):
+def gqa_decode(q, k, v, q_pos, kv_pos, *, window=None, softcap=None,
+               width=None):
     """q: (B, 1, Hq, D); k/v cache: (B, L, Hkv, D); q_pos: (B,); kv_pos:
     (B, L) int32 -> (B, 1, Hq, D), at K2's one kv tile (the ``bk`` of
     ``attn_block_sizes("decode", ...)``) and its split count
-    (``decode_attention.decode_splits``)."""
+    (``decode_attention.decode_splits`` for ``width`` rows, default B).
+    The split count sets the order of the fold, so a row's bits depend
+    on it: a fixed ``width`` keeps them whatever B is."""
+    n_split = (None if width is None else
+               decode_splits(width, k.shape[2], k.shape[1])[0])
     return decode_attention(q, k, v, q_pos, kv_pos, window=window,
-                            softcap=softcap)
+                            softcap=softcap, n_split=n_split)
 
 
 def matmul(x, w):

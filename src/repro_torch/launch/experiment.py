@@ -56,22 +56,20 @@ DRIFT_FILE = "EXPERIMENT_torch_drift.json"
 def check_scenarios(scenarios) -> None:
     """Raise ``NotImplementedError`` if any scenario is one the port cannot
     serve yet, naming the ROADMAP Queue 1 items they need. Every decoder
-    scenario of the JAX factory runs the continuous scheduler over the KV
-    pool (item 6) with ``prefill_chunk`` (item 7); ``_pc`` adds the
-    prefix cache (item 8), ``_sd`` speculative decoding (item 10), and
-    ``_q8`` the int8 KV cache on the pool's lanes (item 6)."""
+    scenario of the JAX factory runs the continuous decoder (ported) with
+    ``prefill_chunk`` (item 7); ``_pc`` adds the prefix cache (item 8)
+    and ``_sd`` speculative decoding (item 10)."""
     decoder = [s.name for s in scenarios if s.mode == "decoder"]
     if not decoder:
         return
-    needs = ["item 6 (the KV pool and the continuous scheduler)",
-             "item 7 (prefill_chunk)"]
+    needs = ["item 7 (prefill_chunk)"]
     if any(n.endswith("_pc") for n in decoder):
         needs.append("item 8 (the prefix cache)")
     if any(n.endswith("_sd") for n in decoder):
         needs.append("item 10 (speculative decoding)")
     raise NotImplementedError(
-        f"decoder scenarios {decoder} serve through the continuous decoder, "
-        f"which the port does not have yet: ROADMAP Queue 1 "
+        f"decoder scenarios {decoder} serve through the continuous decoder "
+        f"with features the port does not have yet: ROADMAP Queue 1 "
         f"{', '.join(needs)}")
 
 

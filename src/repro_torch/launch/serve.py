@@ -10,7 +10,8 @@ random requests and prints the engine's metrics.
 
 ``gector-base`` serves sentences in encoder mode with its edit-tag head;
 ``qwen2-0.5b`` and ``recurrentgemma-9b`` serve prompts in decoder mode
-(batch at a time) through ``generate()``, greedy or sampled at
+through ``generate()``, on the continuous scheduler over the KV pool
+(``--no-continuous``: batch at a time), greedy or sampled at
 ``--temperature`` (and ``--top-k``) with per-request seeds, stopping at
 ``--eos-id``; ``--stream`` prints the first request's tokens as they
 arrive. ``--ladder NS ...`` instead fires the paper's load ladder at the
@@ -64,8 +65,8 @@ def _serve_encoder(args, cfg, rng):
 def _serve_decoder(args, cfg, rng):
     params = init_params(cfg, args.seed, device=args.device)
     eng = ServingEngine(cfg, params,
-                        EngineConfig(mode="decoder", continuous=False,
-                                     use_cache_pool=False,
+                        EngineConfig(mode="decoder",
+                                     continuous=not args.no_continuous,
                                      max_batch=args.max_batch,
                                      max_inflight=args.max_inflight,
                                      max_new_tokens=args.max_new_tokens),
@@ -117,6 +118,8 @@ def main(argv=None):
     ap.add_argument("--stream", action="store_true",
                     help="decoder: print the first request's tokens as "
                          "they arrive")
+    ap.add_argument("--no-continuous", action="store_true",
+                    help="decoder: batch-at-a-time worker (A/B baseline)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 

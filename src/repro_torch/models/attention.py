@@ -178,7 +178,8 @@ def attn_apply(cfg, p, x, positions, *, causal, window=None, cache=None,
 
 
 def attn_decode(cfg, p, x, positions, cache, *, window=None,
-                plain_attention=False, plain_matmul=False, rope=None):
+                plain_attention=False, plain_matmul=False, rope=None,
+                decode_width=None):
     """Single-step decode. x: (B, 1, d); positions (B, 1); cache k/v:
     (B, L, Hkv, D) ring buffer. Writes each row's k/v and position at slot
     ``pos % L`` and adds one to ``len`` (in place), then attends over the
@@ -188,7 +189,10 @@ def attn_decode(cfg, p, x, positions, cache, *, window=None,
     token's own K/V is read back through its stored scale.
     ``plain_attention`` reads the cache back in q's type and runs
     ``naive_attention``, as the JAX model does; ``plain_matmul``, see
-    ``qeinsum``. Returns (out, cache)."""
+    ``qeinsum``. K2 splits the ring by ``decode_width`` (default B): a
+    caller that runs one row at several widths gives its widest, and the
+    row's bits do not change with the batch around it. Returns (out,
+    cache)."""
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, positions, rope, plain_matmul)
     L = cache["k"].shape[1]
@@ -208,6 +212,7 @@ def attn_decode(cfg, p, x, positions, cache, *, window=None,
                               causal=True, window=window, softcap=softcap)
     else:
         out = ops.gqa_decode(q, rk, rv, positions[:, 0], cache["pos"],
-                             window=window, softcap=softcap)
+                             window=window, softcap=softcap,
+                             width=decode_width)
     return qeinsum("bshk,hkd->bsd", out, p["wo"],
                    plain_matmul=plain_matmul), cache

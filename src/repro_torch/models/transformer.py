@@ -115,7 +115,7 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
-                 plain_attention, plain_matmul, rope):
+                 plain_attention, plain_matmul, rope, decode_width=None):
     if kind == "rglru":
         if mode == "decode":
             delta, _ = rglru_mod.rglru_step(cfg, p["rglru"], x, cache)
@@ -131,7 +131,8 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
         a, _ = attn_mod.attn_decode(cfg, p["attn"], h, positions, cache,
                                     window=window,
                                     plain_attention=plain_attention,
-                                    plain_matmul=plain_matmul, rope=rope)
+                                    plain_matmul=plain_matmul, rope=rope,
+                                    decode_width=decode_width)
     else:
         a, _ = attn_mod.attn_apply(cfg, p["attn"], h, positions,
                                    causal=causal, window=window, cache=cache,
@@ -145,7 +146,8 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
 def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             caches=None, mode: str = "full", causal: bool = True,
             return_hidden: bool = False, plain_attention: bool = False,
-            plain_matmul: bool = False, head_w=None):
+            plain_matmul: bool = False, head_w=None,
+            decode_width: int | None = None):
     """Run the model. tokens: (B, S) int; positions: (B, S), default
     0..S-1.
 
@@ -158,7 +160,9 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     matrix when the caller cast it once. ``plain_attention`` swaps the
     sequence-mixing kernels for their plain versions, K1/K2 for
     ``naive_attention`` and K5 for the plain scan; ``plain_matmul`` swaps
-    K3 for its plain version (the reference path). Parameters may be
+    K3 for its plain version (the reference path). ``decode_width``
+    (decode mode) is the batch width K2's split count is chosen for,
+    default the batch's own: see ``attn_decode``. Parameters may be
     ``quantize_params``' tree: its int8 projections go through K3. With
     ``cfg.embed_scale`` the embedding is scaled by sqrt(d_model), rounded
     to the model dtype, as JAX does for the Gemma family."""
@@ -193,7 +197,8 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             x = _apply_block(cfg, kind, _index_tree(blk, i), x, positions,
                              cache, mode=mode, causal=causal,
                              plain_attention=plain_attention,
-                             plain_matmul=plain_matmul, rope=rope)
+                             plain_matmul=plain_matmul, rope=rope,
+                             decode_width=decode_width)
     x = apply_norm(cfg, params["final_norm"], x)
     if return_hidden:
         return x
@@ -254,7 +259,7 @@ def sample_logits(logits, *, temperature=None, top_k=None, seed=None,
 def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
                    active=None, budget=None, eos_id=None, temperature=None,
                    top_k=None, seed=None, plain_attention=False,
-                   head_w=None):
+                   head_w=None, decode_width=None):
     """Masked, sampled multi-step decode over a fixed-width batch.
 
     tokens (B, 1): the token each row just generated; positions (B, 1):
@@ -271,7 +276,8 @@ def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
     Returns (toks (B, n_steps) int32, emitted (B, n_steps) bool, state,
     caches), ``state`` = {tok, pos, active, budget, eos_hit} for a next
     segment. The steps are a Python loop that never waits for the device;
-    the head matrix is cast once per call (``head_w``)."""
+    the head matrix is cast once per call (``head_w``); ``decode_width``,
+    see ``forward``."""
     B, dev = tokens.shape[0], tokens.device
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
            else active.to(torch.bool))
@@ -287,7 +293,8 @@ def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
     for _ in range(n_steps):
         logits = forward(cfg, params, tokens=tok, positions=pos,
                          caches=caches, mode="decode",
-                         plain_attention=plain_attention, head_w=head_w)
+                         plain_attention=plain_attention, head_w=head_w,
+                         decode_width=decode_width)
         nxt = sample_logits(logits[:, -1], temperature=temperature,
                             top_k=top_k, seed=seed, positions=pos[:, 0] + 1)
         emit = act

@@ -292,6 +292,35 @@ def test_k2_split_count_is_a_function_of_shapes():
                        decode_attention_plain(*args)[0])
 
 
+def test_gqa_decode_width_fixes_the_split_count():
+    """``ops.gqa_decode(..., width=)`` runs K2 at ``decode_splits(width,
+    Hkv, L)`` splits whatever B is; without ``width`` the count follows B
+    (at L = 528 and two kv heads: 17 splits at B = 1, 5 at B = 32). On
+    the card that keeps a row's bits alone or in a batch
+    (``test_k2_cuda_rows_are_bit_equal_across_batch_widths``)."""
+    B, L, Hq, Hkv, D = 8, 528, 4, 2, 64
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, 1, Hq, D), (B, L, Hkv, D), (B, L, Hkv, D)))
+    q_pos = torch.from_numpy(rng.integers(300, L, B).astype(np.int32))
+    kv_pos = torch.arange(L, dtype=torch.int32).expand(B, L).contiguous()
+    assert decode_splits(1, Hkv, L)[0] == 17
+    assert decode_splits(32, Hkv, L)[0] == 5
+    full = ops.gqa_decode(q, k, v, q_pos, kv_pos, width=32)
+    assert torch.equal(full, decode_attention_plain(
+        q, k, v, q_pos, kv_pos, n_split=5)[0])
+    for b in (1, 2, 4):
+        got = ops.gqa_decode(q[:b], k[:b], v[:b], q_pos[:b], kv_pos[:b],
+                             width=32)
+        assert torch.equal(got, decode_attention_plain(
+            q[:b], k[:b], v[:b], q_pos[:b], kv_pos[:b], n_split=5)[0])
+    assert torch.equal(ops.gqa_decode(q[:1], k[:1], v[:1], q_pos[:1],
+                                      kv_pos[:1]),
+                       decode_attention_plain(q[:1], k[:1], v[:1],
+                                              q_pos[:1], kv_pos[:1],
+                                              n_split=17)[0])
+
+
 def test_k2_visits_skip_dead_tiles():
     """A short request in a long ring pays for its live tiles only; a
     window bounds the sweep whatever the ring's length (the JAX test
@@ -724,6 +753,29 @@ def test_k2_cuda_kernel_matches_plain_at_split_counts(case, n_split,
     torch.testing.assert_close(out.float(), ref, atol=tol,
                                rtol=0 if q_dtype == torch.float32 else tol)
     assert torch.equal(visits, ref_visits)
+
+
+@requires_cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+def test_k2_cuda_rows_are_bit_equal_across_batch_widths(q_dtype, kv_dtype):
+    """At one split count each (row, kv head, split) is a block of its
+    own: a row's output has the same bits alone, in a few rows or in 32
+    (Qwen2's decode shape at L = 528, at the split count of 32 rows)."""
+    B, L, Hq, Hkv, D = 32, 528, 14, 2, 64
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda() for s in ((B, 1, Hq, D), (B, L, Hkv, D),
+                                 (B, L, Hkv, D)))
+    q, k, v = q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+    q_pos = torch.from_numpy(rng.integers(300, L, B).astype(np.int32)).cuda()
+    kv_pos = torch.arange(L, dtype=torch.int32,
+                          device="cuda").expand(B, L).contiguous()
+    full = ops.gqa_decode(q, k, v, q_pos, kv_pos, width=B)
+    for b in (1, 2, 4, 8, 16):
+        got = ops.gqa_decode(q[:b], k[:b], v[:b], q_pos[:b], kv_pos[:b],
+                             width=B)
+        assert torch.equal(got, full[:b])
 
 
 @requires_cuda

@@ -209,11 +209,10 @@ def test_warmup_serves_each_bucket_and_discard_drops_it(params):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(), NotImplementedError, "item 6"),
-    (dict(continuous=True, use_cache_pool=False), NotImplementedError,
-     "item 6"),
-    (dict(continuous=False, use_cache_pool=True), NotImplementedError,
-     "item 6"),
+    (dict(prefill_chunk=8), NotImplementedError, "item 7"),
+    (dict(prefix_cache=True, prefill_chunk=8), NotImplementedError,
+     "item 8"),
+    (dict(spec_decode=True), NotImplementedError, "item 10"),
     (dict(continuous=False, use_cache_pool=False, weight_quant="int4"),
      ValueError, "weight_quant must be None or 'int8'"),
     (dict(continuous=False, use_cache_pool=False, kv_quant="int4"),
@@ -224,9 +223,40 @@ def test_warmup_serves_each_bucket_and_discard_drops_it(params):
      ValueError, "continuous decoder path"),
 ])
 def test_decoder_config_gates_raise(params, kw, exc, match):
+    """The continuous path's features that are not ported name their
+    ROADMAP item; the others are the JAX engine's own errors."""
     with pytest.raises(exc, match=match):
         ServingEngine(CFG, params, EngineConfig(mode="decoder", **kw),
                       device="cpu")
+
+
+@pytest.mark.parametrize("kw,continuous", [
+    (dict(), True),
+    (dict(continuous=True, use_cache_pool=False), False),
+    (dict(continuous=False, use_cache_pool=True), False),
+])
+def test_decoder_configs_serve(params, kw, continuous):
+    """The three configurations that raised before the KV pool and the
+    continuous scheduler were ported now serve: the default one through
+    the continuous scheduler, the other two batch at a time (JAX's
+    ``continuous_active``), with the same tokens."""
+    prompts = _prompts(3, 3, 20, seed=8)
+    eng = ServingEngine(CFG, params, EngineConfig(
+        mode="decoder", pad_buckets=(16, 32), max_new_tokens=4,
+        max_batch=4, **kw), device="cpu")
+    ref = _engine(params)
+    try:
+        assert eng.continuous_active is continuous
+        got = [h.result(timeout=300).tokens
+               for h in [eng.generate(p) for p in prompts]]
+        want = [h.result(timeout=300).tokens
+                for h in [ref.generate(p) for p in prompts]]
+    finally:
+        eng.close()
+        ref.close()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert ("jit_compiles" in eng.metrics()) is continuous
 
 
 def test_jax_engine_rejects_the_same_features(jx):
