@@ -123,7 +123,11 @@ Phases (each raises on failure; nothing is caught):
      decode step's logits at widths 1-16 in caches of 48, 144, 272 and
      528 slots must equal the cap's (16 or 32) at the cap's K2 split
      count (the engine's ``decode_width``), and are printed beside at
-     K2's own split count for the width;
+     K2's own split count for the width; then GECToR-base's encoder
+     program (float and int8): rows of batches 1..16 at bucket 32 and
+     1..4 at bucket 128, which the engine pads like the prefills, equal
+     the widest batch's; and the eager decoder's (``use_scan_decode=
+     False``) first-token logits at bucket 32, batches 1..4;
  23. Qwen2-0.5B at full width through the default continuous decoder
      (lanes over buckets 32/64/128, the KV pool, adaptive width tiers,
      ``warmup(sampled=True)`` capturing every program): 48 greedy and
@@ -133,12 +137,44 @@ Phases (each raises on failure; nothing is caught):
      where phase 22 finds a row's bits independent of the batch), a
      measured window that captures nothing, K1/K2/K3
      launches against its prefill batches and segments, the
-     untouched-slot property bitwise on the pool, each width tier's
-     segment captured against uncaptured, and device memory; float,
+     untouched-slot property bitwise on the pool, the smallest and the
+     largest width tier's segment captured against uncaptured, and
+     device memory; float,
      then int8 weights and KV; then 32 staggered requests of 257-500
      tokens in bucket 512 at max_batch 32, adaptive against fixed width
      and batch at a time (the continuous engines' second pass, whose
-     occupancy moves across the width tiers), float and int8.
+     occupancy moves across the width tiers), float and int8;
+ 24. chunked prefill (``prefill_chunk``): (a) prompts of 100, 257 and
+     500 tokens prefilled chunk by chunk (C = 128, and 64 at bucket 128)
+     against whole, fp32 within 1e-4 relative and bf16 within phase 7's
+     factor of the plain path's error, the bf16 difference kept as the
+     near-tie threshold; a chunk's attention over the cache
+     (``naive_attention``) timed against SDPA on its mask; (b) the chunk
+     program's row 0 alone and beside 1..15 other fills, padded as the
+     engine pads, bit for bit, and captured against uncaptured; (c) 48
+     requests of up to 500 tokens in buckets 128/256/512 through the
+     continuous engine with and without ``prefill_chunk=128``, float and
+     int8: equal tokens, except requests that part at a near-tie of the
+     unchunked run (the least logit change that changes the sampler's
+     choice, top-k boundary included, below (a)'s difference; printed
+     with their margins and counted); the
+     in-flight row's segment gaps while a 500-token prompt prefills,
+     chunked against whole; and (after phase 19) RecurrentGemma-9B at
+     full depth, 4 requests chunk by chunk through the engine against
+     direct calls, with 26 K5 launches per chunk program;
+ 25. the prefix cache at buckets 128 (C = 32) and 512 (C = 128), float
+     and int8 KV: a system prompt of 3/4 of the bucket plus unique
+     suffixes, served one by one; warm hits equal a cold engine's tokens
+     exactly, the counters equal the expected 7 hits, 1 miss, 1 insert,
+     a measured window after ``warmup()`` captures nothing; a donor that
+     joined whole (K1) held to phase 24's token rule; a store of one
+     entry evicts and stays equal to cold; a request's prefill device
+     time cold (its chunk programs) against warm (one hit program);
+ 26. (after phase 20) the deploy lab's decoder scenarios
+     (``--staggered --prefix-cache --quant``, full-width Qwen2-0.5B,
+     the CLI's defaults) over the 21 paper profiles: records, cells and
+     compile-clean windows checked, the ``prefix_cache`` and ``quant``
+     cells printed per profile, the grid written to ``chiprun_out/lab``.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its design and
 its instantiations' registers), then as the last line
@@ -1754,7 +1790,8 @@ def phase_paper_ladder(kernels, name):
     # ---- K3 at every width the int8 ladder served, and the full batch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
-    widths = sorted({b * LADDER_BUCKET for b in batches8})
+    widths = sorted({ServingEngine._prefill_rows(b, LADDER_BUCKET)
+                     * LADDER_BUCKET for b in batches8})
     worst = 0.0
     for M in widths:
         for K, N in proj_shapes(cfg):
@@ -2096,14 +2133,14 @@ def phase_width_determinism(cfg, params, label, kv_quant=None):
     return pre, dec
 
 
-def cont_load(cfg, seed):
+def cont_load(cfg, seed, spans=CONT_SPANS):
     """The continuous phase's 48 requests: 16 per (shortest, longest
-    prompt, bucket) of ``CONT_SPANS``, every other one sampled
-    (temperature 0.8, top_k 50, its own seed), shuffled."""
+    prompt, bucket) of ``spans``, every other one sampled (temperature
+    0.8, top_k 50, its own seed), shuffled."""
     from repro_torch.serving.api import SamplingParams
     rng = np.random.default_rng(seed)
     load = []
-    for lo, hi, _ in CONT_SPANS:
+    for lo, hi, _ in spans:
         for i in range(16):
             p = rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
             sp = (SamplingParams(temperature=0.8, top_k=50,
@@ -2177,7 +2214,7 @@ def phase_continuous(cfg, params, kernels, name, *, quant=None):
     (one wave per bucket); every request's tokens against both; the
     measured window compile-clean; K1/K2/K3 launches against the
     window's prefill batches and segments; the untouched-slot property
-    on the pool's bytes; each tier's segment captured against
+    on the pool's bytes; the end tiers' segments captured against
     uncaptured. ``quant="int8"`` serves int8 weights and KV. Every
     request's tokens must be the same in all three engines. Returns the
     window's K1..K5 launches."""
@@ -2352,11 +2389,11 @@ def phase_continuous_long(cfg, params, name, *, quant=None):
 
 
 def tier_timings(eng, bucket, name, tag):
-    """Each width tier's decode segment (``decode_segment`` steps) of the
-    engine's bucket, captured (a replay of its program): wall, kernels
-    and device idle share; at the smallest and the largest tier also the
-    same program called uncaptured."""
-    for width in eng._tiers:
+    """The smallest and the largest width tier's decode segment
+    (``decode_segment`` steps) of the engine's bucket, captured (a replay
+    of its program) and the same program called uncaptured: wall,
+    kernels and device idle share."""
+    for width in (eng._tiers[0], eng._tiers[-1]):
         slots = list(range(width))
         rows = (np.full((width, 1), 7, np.int32),
                 np.full((width, 1), 5, np.int32), np.ones(width, bool),
@@ -2365,11 +2402,6 @@ def tier_timings(eng, bucket, name, tag):
         kw = dict(slots=slots) if compact else {}
         cap = program_reading(lambda: eng._segment_call(bucket, width, rows,
                                                         **kw), n_wall=5)
-        if width not in (eng._tiers[0], eng._tiers[-1]):
-            print(f"continuous{tag} segment bucket {bucket} width {width} "
-                  f"({eng.ec.decode_segment} steps): captured "
-                  f"{fmt_reading(cap)} [{name}]", flush=True)
-            continue
         fn = eng._segment_fn(bucket)
         dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
                for a in rows]
@@ -2386,6 +2418,866 @@ def tier_timings(eng, bucket, name, tag):
               f"({eng.ec.decode_segment} steps): captured "
               f"{fmt_reading(cap)}; uncaptured {fmt_reading(unc)} "
               f"[{name}]", flush=True)
+
+
+# ------------------------------------- a row's bits: encoder, eager decoder
+def _requests(prompts):
+    from concurrent.futures import Future
+    from repro_torch.serving.engine import _Request
+    return [_Request(np.asarray(p, np.int32), Future(), time.perf_counter())
+            for p in prompts]
+
+
+def phase_encoder_widths(cfg, params, label, quant=None):
+    """22, the encoder program. Rows of batches n = 1..16 at bucket 32 and
+    n = 1..4 at bucket 128 served by the encoder engine's program (which
+    pads a batch to ``PREFILL_MIN_M`` rows of M with copies of its first
+    row) must equal the same rows of the widest batch bit for bit:
+    GECToR-base's hidden states, float or int8 weights."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    rng = np.random.default_rng(220)
+    eng = ServingEngine(cfg, params, EngineConfig(
+        mode="encoder", max_batch=16, pad_buckets=(32, 128),
+        weight_quant=quant), device="cuda")
+    worst, checked = 0.0, 0
+    try:
+        with torch.inference_mode():
+            for bucket, cap, lo in ((32, 16, 8), (128, 4, 33)):
+                sents = sentences(rng, cap, lo, bucket - 8, cfg.vocab_size)
+                if bucket == 32:
+                    short = sents[0]
+
+                def serve(n):
+                    reqs = _requests(sents[:n])
+                    eng._serve_batch(reqs)
+                    return [r.future.result() for r in reqs]
+                wide = serve(cap)
+                for n in range(1, cap):
+                    for g, w in zip(serve(n), wide):
+                        worst = max(worst, (g.float() - w.float()).abs()
+                                    .max().item())
+                    checked += 1
+            # what the padding costs: one sentence's forward at bucket 32
+            # alone (M = 32) and as the engine runs it (4 rows, M = 128),
+            # each a captured program, by events over its replays
+            from repro_torch.models import forward
+            from repro_torch.serving.graphs import GraphCache
+            tree = eng.params.get("encoder", eng.params)
+            one = torch.zeros((4, 32), dtype=torch.long, device="cuda")
+            one[:, :len(short)] = torch.from_numpy(short).cuda()
+            programs = GraphCache("cuda")
+
+            def fwd(t):
+                return forward(cfg, tree, tokens=t, causal=False,
+                               return_hidden=True)
+            cost = [cuda_ms(lambda: programs.run(b, fwd, one[:b]))
+                    for b in (1, 4)]
+    finally:
+        eng.close()
+    print(f"width determinism {label}: GECToR-base encoder program, rows "
+          f"of batches 1..15 at bucket 32 and 1..3 at bucket 128 (padded "
+          f"by the engine to M >= {128}) vs the widest batch: max hidden "
+          f"diff {worst:.3e} over {checked} batches; one sentence's "
+          f"forward at bucket 32, a captured program's replay by events: "
+          f"alone {cost[0]:.4f} ms, padded to 4 rows {cost[1]:.4f} ms",
+          flush=True)
+    if worst != 0.0:
+        raise AssertionError(f"{label}: an encoder row changes with its "
+                             f"batch ({worst:.3e})")
+
+
+def phase_eager_decoder_widths(cfg, params, label, quant=None):
+    """22, the eager decoder (``use_scan_decode=False``). Prompts of
+    batches n = 1..4 at bucket 32 prefilled as the engine prefills them
+    (``_acquire_caches`` pads the batch to ``PREFILL_MIN_M`` rows of M
+    with copies of the first row's cache): the first-token logits of
+    each row must equal the widest batch's bit for bit."""
+    from repro_torch.models import forward
+    from repro_torch.models.layers import lm_head_apply
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import _pad_rows
+    rng = np.random.default_rng(221)
+    eng = ServingEngine(cfg, params, EngineConfig(
+        mode="decoder", continuous=False, use_scan_decode=False,
+        pad_buckets=(32,), max_batch=4, max_new_tokens=NEW_TOKENS,
+        weight_quant=quant, kv_quant=quant), device="cuda")
+    _, toks, lens = prompt_batch(rng, 4, 8, 32, 32, cfg.vocab_size)
+
+    def first(n):
+        rows = eng._prefill_rows(n, 32)
+        caches, handle = eng._acquire_caches(n, 32, rows=rows)
+        try:
+            t, ln = (torch.from_numpy(a).cuda()
+                     for a in _pad_rows(rows, toks[:n], lens[:n]))
+            hid = forward(cfg, eng.params, tokens=t, caches=caches,
+                          mode="full", return_hidden=True)
+            last = hid[torch.arange(rows, device="cuda"), ln - 1][:, None]
+            return lm_head_apply(cfg, None, last, w=eng._head_w)[:n, 0]
+        finally:
+            eng._release_caches(handle)
+    try:
+        with torch.inference_mode():
+            wide = first(4)
+            worst = max((first(n) - wide[:n]).abs().max().item()
+                        for n in (1, 2, 3))
+    finally:
+        eng.close()
+    print(f"width determinism {label}: eager decoder first-token logits of "
+          f"batches 1..3 at bucket 32 vs 4: max diff {worst:.3e}",
+          flush=True)
+    if worst != 0.0:
+        raise AssertionError(f"{label}: an eager decoder row changes with "
+                             f"its batch ({worst:.3e})")
+
+
+# ------------------------------------------------------- chunked prefill
+CHUNK = 128                     # prefill_chunk of phases 24 and 25
+# (a)'s prompts: (length, bucket, chunks)
+CHUNK_PROMPTS = ((100, 128, (128, 64)), (257, 512, (128,)),
+                 (500, 512, (128,)))
+# (c)'s load: 16 requests per (shortest, longest prompt, bucket); buckets
+# of whole chunks, since the ring check holds every bucket to them
+CHUNK_SPANS = ((8, 128, 128), (129, 256, 256), (257, 500, 512))
+
+
+def chunk_logits(cfg, params, prompt, bucket, C, w, kv_quant=None):
+    """The first-token logits (V,) of ``prompt`` prefilled chunk by chunk
+    into fresh caches of bucket + NEW_TOKENS slots, as a fill runs."""
+    from repro_torch.models import make_caches
+    caches = make_caches(cfg, 1, bucket + NEW_TOKENS, dtype=torch.float32,
+                         kv_quant=kv_quant, device="cuda")
+    return chunk_logits_into(cfg, params, prompt, C, w, caches)[0]
+
+
+def whole_logits(cfg, params, prompt, bucket, w, plain=False,
+                 kv_quant=None):
+    """The first-token logits of ``prompt`` padded to ``bucket`` and
+    prefilled whole (K1, or ``plain`` attention), as a join runs."""
+    from repro_torch.models import make_caches
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :len(prompt)] = prompt
+    caches = make_caches(cfg, 1, bucket + NEW_TOKENS, dtype=torch.float32,
+                         kv_quant=kv_quant, device="cuda")
+    lens = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+    logits, _ = first_logits(cfg, params, torch.from_numpy(toks).cuda(),
+                             lens, caches, plain)
+    return logits[0]
+
+
+def phase_chunk_model(cfg, params, qparams, name):
+    """24 (a). One prompt of each length in ``CHUNK_PROMPTS`` prefilled
+    chunk by chunk against whole: with fp32 weights (and the fp32 K1) the
+    first-token logits agree to 1e-4 of their largest magnitude; with bf16
+    weights the chunked logits' error against the fp32 whole prefill may
+    be at most ``LOGIT_ERR_FACTOR`` x the plain-attention whole prefill's
+    (phase 7's rule). Returns the largest |chunked - whole| bf16 logit
+    difference, with float weights and with ``qparams`` (int8 weights and
+    KV): phase 24 (c)'s near-tie thresholds."""
+    from repro_torch.models.layers import head_weight
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = to_fp32(params)
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    w32 = head_weight(cfg32, params32.get("lm_head"), params32["embed"])
+    rng = np.random.default_rng(240)
+    tie = tie8 = 0.0
+    with torch.inference_mode():
+        for length, bucket, chunks in CHUNK_PROMPTS:
+            prompt = rng.integers(0, cfg.vocab_size, length)
+            ref = whole_logits(cfg32, params32, prompt, bucket, w32)
+            plain = whole_logits(cfg, params, prompt, bucket, w, plain=True)
+            k1 = whole_logits(cfg, params, prompt, bucket, w)
+            e_plain = (plain.float() - ref).abs().max().item()
+            # the padded vocabulary's masked logits equal in every path
+            mag = ref[:cfg.vocab_size].abs().max().item()
+            for C in chunks:
+                c32 = chunk_logits(cfg32, params32, prompt, bucket, C, w32)
+                d32 = (c32 - ref).abs().max().item()
+                rel = d32 / mag
+                cbf = chunk_logits(cfg, params, prompt, bucket, C, w)
+                e_chunk = (cbf.float() - ref).abs().max().item()
+                d = (cbf.float() - k1.float()).abs().max().item()
+                tie = max(tie, d)
+                print(f"chunked prefill, model level: {length} tokens, "
+                      f"bucket {bucket}, C={C}: fp32 chunked vs whole "
+                      f"{d32:.3e} of {mag:.3e} = {rel:.3e} relative (tol "
+                      f"1e-4); bf16 vs the fp32 "
+                      f"whole: chunked {e_chunk:.3e}, plain whole "
+                      f"{e_plain:.3e} (factor {LOGIT_ERR_FACTOR}); bf16 "
+                      f"chunked vs K1 whole {d:.3e}; top-1 "
+                      f"{'same' if cbf.argmax() == k1.argmax() else 'differs'}",
+                      flush=True)
+                if rel > 1e-4:
+                    raise AssertionError(f"fp32 chunked prefill of {length} "
+                                         f"tokens at C={C}: {rel:.3e}")
+                if e_chunk > LOGIT_ERR_FACTOR * e_plain:
+                    raise AssertionError(
+                        f"bf16 chunked prefill of {length} tokens at C={C} "
+                        f"strays from fp32 by {e_chunk:.3e} > "
+                        f"{LOGIT_ERR_FACTOR} x {e_plain:.3e}")
+                d8 = (chunk_logits(cfg, qparams, prompt, bucket, C, w,
+                                   kv_quant="int8").float()
+                      - whole_logits(cfg, qparams, prompt, bucket, w,
+                                     kv_quant="int8").float()).abs().max()
+                tie8 = max(tie8, d8.item())
+    print(f"chunked prefill, model level: near-tie thresholds (bf16 "
+          f"chunked vs whole) float {tie:.4e}, int8 W+KV {tie8:.4e}",
+          flush=True)
+    del params32
+    torch.cuda.empty_cache()
+    return tie, tie8
+
+
+def chunk_attention_timings(cfg, name):
+    """A chunk's attention over the cache (``naive_attention``, one layer)
+    against SDPA on the same chunk-over-cache mask, by device time, at
+    C = 128 over a cache of 528 slots, 1 and 16 rows."""
+    from repro_torch.models.attention import _mask, naive_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(241)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    L, C = 528, CHUNK
+    out = {}
+    for rows in (1, 16):
+        q = randn(gen, rows, C, Hq, D, dtype=torch.bfloat16)
+        k, v = (randn(gen, rows, L + C, Hkv, D, dtype=torch.bfloat16)
+                for _ in range(2))
+        start = 384                           # the chunk's 4th position
+        qpos = (start + torch.arange(C, device="cuda"))[None].expand(rows, C)
+        kpos = torch.full((rows, L), -1, dtype=torch.int32, device="cuda")
+        kpos[:, :start] = torch.arange(start, dtype=torch.int32,
+                                       device="cuda")
+        kvpos = torch.cat([kpos, qpos.int()], 1)
+        t_n = device_ms(lambda: naive_attention(q, k, v, qpos, kvpos))
+        mask = _mask(qpos, kvpos, causal=True, window=None)[:, None]
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
+                  for x in (k, v))
+        t_s = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        kv_bytes = 2 * rows * (L + C) * Hkv * D * 2
+        bound = max((kv_bytes + 2 * rows * C * Hq * D * 2) / HBM_BYTES_PER_S,
+                    4 * rows * Hq * C * (start + C) * D / BF16_FLOP_PER_S) \
+            * 1e3
+        out[rows] = (t_n, t_s, bound)
+        print(f"chunk attention over the cache, one layer, {rows} rows x "
+              f"C={C} at position {start}, ring {L}, {Hq}/{Hkv} heads of "
+              f"{D}, bf16: naive_attention {fmt_ms(t_n)}, SDPA (mask) "
+              f"{fmt_ms(t_s)}, bound {bound:.4f} ms; per chunk "
+              f"({cfg.n_layers} layers) naive "
+              f"{fmt_ms(None if t_n is None else t_n * cfg.n_layers)} "
+              f"[{name}]", flush=True)
+    return out
+
+
+def phase_chunk_rows(cfg, params, name, kv_quant=None, label=""):
+    """24 (b). The engine's chunk program up to its logits (gather the
+    fills' staging slots, ``prefill_chunk`` at their starts, the logits at
+    ``nvalid - 1``), at C = 128 in bucket 512: 16 fills of 500 tokens whose
+    first chunk is staged; row 0's second-chunk logits run alone and with
+    1..15 other fills (rows ``_prefill_rows(n, C)``, padded as the engine
+    pads) must equal the 16-fill run's bit for bit, and the 16-fill
+    program captured must equal it uncaptured. Returns the captured
+    reading."""
+    from repro_torch.models import prefill_chunk
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    from repro_torch.serving import kvcache
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.graphs import GraphCache
+    from repro_torch.serving.kvcache import CachePool
+    bucket, C, n_max = 512, CHUNK, CONT_BATCH
+    pool = CachePool(cfg, n_max, bucket + NEW_TOKENS, dtype=torch.float32,
+                     kv_quant=kv_quant, device="cuda")
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    rng = np.random.default_rng(242)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (n_max, 2 * C))).cuda()
+    ar = torch.arange(C, dtype=torch.int32, device="cuda")
+
+    def fn(t, start, nvalid, idx):
+        view = kvcache._take_slots(pool.caches, idx)
+        hid = prefill_chunk(cfg, params, t, start[:, None] + ar, view,
+                            return_hidden=True)
+        last = hid[torch.arange(t.shape[0], device="cuda"), nvalid - 1]
+        return lm_head_apply(cfg, None, last[:, None], w=w)[:, 0]
+
+    def args(n):
+        rows = ServingEngine._prefill_rows(n, C)
+        idx = list(range(n)) + [0] * (rows - n)
+        ix = torch.tensor(idx, device="cuda")
+        return (toks[ix, C:], torch.full((rows,), C, dtype=torch.int32,
+                                         device="cuda"),
+                torch.full((rows,), C, dtype=torch.int32, device="cuda"), ix)
+    with torch.inference_mode():
+        prefill_chunk(cfg, params, toks[:, :C], ar[None].expand(n_max, C),
+                      pool.caches)                # stage every fill's chunk 0
+        ref = fn(*args(n_max))[0]
+        worst = max((fn(*args(n))[0] - ref).abs().max().item()
+                    for n in range(1, n_max))
+        print(f"chunk program{label}: row 0's logits alone and with 1..15 "
+              f"other fills (C={C}, bucket {bucket}, rows padded to "
+              f"M >= 128) vs 16 fills: max diff {worst:.3e}", flush=True)
+        if worst != 0.0:
+            raise AssertionError(f"chunk program{label}: row 0 changes with "
+                                 f"the fills beside it ({worst:.3e})")
+        gc = GraphCache("cuda")
+        a16 = args(n_max)
+        cap, unc = captured_against_direct(
+            gc, ("chunk", n_max), fn, a16, fn(*a16),
+            f"chunk program{label} (16 fills x C={C}, bucket {bucket}, up "
+            f"to the logits)", name)
+        a1 = args(1)
+        cap1, unc1 = captured_against_direct(
+            gc, ("chunk", 1), fn, a1, fn(*a1),
+            f"chunk program{label} (1 fill x C={C}, bucket {bucket}, up to "
+            f"the logits)", name)
+    return {"16 fills": (cap, unc), "1 fill": (cap1, unc1)}
+
+
+def choice_margin(logits, sp, position, want):
+    """The smallest change of logits, in logit units, that changes the
+    choice of the sampler at one step (``sample_logits`` on ``logits``
+    (V,) with ``sp``'s temperature, top_k and seed, counter
+    ``position``): greedy, the gap of the top two logits; sampled, the
+    least of (i) the gap of the top two noisy scores among the top-k
+    tokens times the temperature, (ii) the distance below the top-k
+    threshold of the nearest token outside the top k whose noisy score
+    would win if it entered, and (iii) the winner's distance above the
+    largest logit outside the top k. Checks that the reconstruction picks
+    ``want``, the run's token."""
+    from repro_torch.models import threefry
+    lg = logits.float()
+    if not sp.temperature:           # argmax: the first of tied maxima
+        winner = int(torch.argmax(lg))
+        top = torch.topk(lg, 2).values
+        margin = (top[0] - top[1]).item()
+    else:
+        V = lg.shape[0]
+        k = sp.top_k if sp.top_k else V
+        desc = torch.sort(lg, descending=True).values
+        thresh = desc[k - 1]
+        key = threefry.fold_in(threefry.fold_in(
+            threefry.prng_key(0x5EED, device=lg.device),
+            torch.tensor(sp.seed, dtype=torch.int32, device=lg.device)),
+            torch.tensor(position, dtype=torch.int32, device=lg.device))
+        raw = lg / sp.temperature + threefry.gumbel(key, V)
+        inside = lg >= thresh
+        scores = torch.where(inside, raw, float("-inf"))
+        winner = int(torch.argmax(scores))
+        top = torch.topk(scores, 2).values
+        margin = (top[0] - top[1]).item() * sp.temperature
+        enter = ~inside & (raw > top[0])
+        if enter.any():
+            margin = min(margin, (thresh - lg[enter].max()).item())
+        if k < V:
+            margin = min(margin, (lg[winner] - desc[k]).item())
+    if winner != int(want):
+        raise AssertionError(f"the margin's reconstruction picks {winner}, "
+                             f"the run {want}")
+    return margin
+
+
+def stream_logits(cfg, params, prompt, bucket, stream, d, *, kv_quant=None,
+                  chunk=None, decode_width=None):
+    """The logits (V,) at step ``d`` of ``stream`` (a run's tokens for
+    ``prompt``): the prompt prefilled whole at ``bucket`` (or chunk by
+    chunk of ``chunk``), then teacher-forced decode steps up to step d at
+    the engine's decode width (default ``CONT_BATCH``), into one-row
+    caches of bucket + NEW_TOKENS slots."""
+    from repro_torch.models import forward, make_caches
+    from repro_torch.models.layers import head_weight
+    caches = make_caches(cfg, 1, bucket + NEW_TOKENS, dtype=torch.float32,
+                         kv_quant=kv_quant, device="cuda")
+    n = len(prompt)
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    if chunk:
+        logits = chunk_logits_into(cfg, params, prompt, chunk, w, caches)
+    else:
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :n] = prompt
+        logits, _ = first_logits(cfg, params, torch.from_numpy(toks).cuda(),
+                                 torch.tensor([n], dtype=torch.int32,
+                                              device="cuda"), caches, False)
+    for step in range(1, d + 1):
+        tok = torch.tensor([[int(stream[step - 1])]], dtype=torch.int32,
+                           device="cuda")
+        pos = torch.tensor([[n + step - 1]], dtype=torch.int32,
+                           device="cuda")
+        logits = forward(cfg, params, tokens=tok, positions=pos,
+                         caches=caches, mode="decode", head_w=w,
+                         decode_width=decode_width or CONT_BATCH)[:, 0]
+    return logits[0]
+
+
+def phase_chunked_continuous(cfg, params, kernels, name, tie, quant=None):
+    """24 (c). The 48 requests of ``cont_load`` over ``CHUNK_SPANS``
+    (prompts up to 500 tokens in buckets 128/256/512) through the
+    continuous engine with ``prefill_chunk=128`` and without, float or
+    int8 W+KV, each engine capturing its programs as they come. Every
+    request's tokens must be equal, except where the first differing step
+    is a near-tie of the unchunked run: a ``choice_margin`` below ``tie``
+    (phase 24 (a)'s chunked-vs-whole logit difference); each such request
+    is printed with its margin and the count of them. Returns the chunked
+    engine's K1..K5 launches."""
+    import gc
+    from repro_torch.serving import EngineConfig, ServingEngine
+    tag = " int8 W+KV" if quant else ""
+    load = cont_load(cfg, 24, spans=CHUNK_SPANS)
+    base = dict(mode="decoder", max_batch=CONT_BATCH,
+                pad_buckets=tuple(b for _, _, b in CHUNK_SPANS),
+                max_new_tokens=NEW_TOKENS, weight_quant=quant,
+                kv_quant=quant)
+    t0 = time.perf_counter()
+    streams, wins, mem = {}, {}, {}
+    for label, kw in (("chunked", dict(prefill_chunk=CHUNK)), ("whole", {})):
+        gc.collect()                      # the engines before, freed now
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        eng = ServingEngine(cfg, params, EngineConfig(**base, **kw),
+                            device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_launches(kernels)
+            results, wall = serve_load(eng, load, CONT_GAP_S)
+            launches = tuple(fn.launches for fn in kernels)
+            wins[label] = (eng.window(), launches, wall)
+            tree = eng.params
+            torch.cuda.synchronize()
+            mem[label] = (
+                sum(p.nbytes for p in eng._pools.values()),
+                sum(ln.staging.nbytes
+                    for ln in eng._scheduler.lanes.values()
+                    if ln.staging is not None),
+                torch.cuda.memory_allocated() - base_mem,
+                torch.cuda.max_memory_allocated() - base_mem)
+        finally:
+            eng.close()
+        streams[label] = [r.tokens for r in results]
+        print(f"chunked continuous{tag}, {label}: lane pools {mem[label][0]:,} "
+              f"B, staging pools {mem[label][1]:,} B; device memory above "
+              f"what the phase held before the engine (its int8 tree "
+              f"included): resident {mem[label][2]:,} B after serving, "
+              f"peak {mem[label][3]:,} B while serving [{name}]", flush=True)
+    win, launches, wall = wins["chunked"]
+    print(f"chunked continuous{tag}: 48 requests in {wall:.3f} s, "
+          f"prefill_chunks {win['prefill_chunks']} (lanes "
+          f"{ {b: l['prefill_chunks'] for b, l in win['lanes'].items()} }), "
+          f"prefill batches {win['prefill_batches']}, segments "
+          f"{win['decode_segments']}, {win['jit_compiles']} programs "
+          f"captured; K1..K5 launches {launches}; the unchunked engine "
+          f"{wins['whole'][2]:.3f} s, K1..K5 {wins['whole'][1]} [{name}]",
+          flush=True)
+    n_fill = sum(-(-len(p) // CHUNK) for p, _ in load if len(p) > CHUNK)
+    if win["prefill_chunks"] != n_fill:
+        raise AssertionError(f"prefill_chunks {win['prefill_chunks']} != "
+                             f"{n_fill}")
+    parted = []
+    for i, ((p, sp), a, b) in enumerate(zip(load, streams["chunked"],
+                                            streams["whole"])):
+        if np.array_equal(a, b):
+            continue
+        n = min(len(a), len(b))
+        d = int(np.argmin(a[:n] == b[:n])) if (a[:n] != b[:n]).any() else n
+        bucket = next(bk for _, hi, bk in CHUNK_SPANS if len(p) <= hi)
+        with torch.inference_mode():
+            margin = choice_margin(
+                stream_logits(cfg, tree, p, bucket, b, d, kv_quant=quant),
+                sp, len(p) + d, b[d])
+        parted.append((i, len(p), d, margin))
+        print(f"chunked continuous{tag}: request {i} ({len(p)} tokens, "
+              f"{'sampled' if sp.temperature else 'greedy'}) parts from "
+              f"the unchunked run at step {d}, whose choice margin there "
+              f"is {margin:.4e} (near-tie threshold {tie:.4e})",
+              flush=True)
+    print(f"chunked continuous{tag}: {48 - len(parted)} of 48 requests "
+          f"token-identical to the unchunked engine; {len(parted)} part at "
+          f"a near-tie; {time.perf_counter() - t0:.1f} s", flush=True)
+    if any(m >= tie for *_, m in parted):
+        raise AssertionError(f"chunked continuous{tag}: partings {parted} "
+                             f"not all below the near-tie threshold "
+                             f"{tie:.4e}")
+    return launches
+
+
+def stall_reading(cfg, params, name):
+    """24, the stall chunking cuts: one request decoding in bucket 128
+    (64 new tokens) while a 500-token prompt joins bucket 512; the gaps
+    between the in-flight request's segments (its streamed tokens' arrival
+    times) with ``prefill_chunk=128`` against whole-prompt admission.
+    Programs of one-row joins and segments are captured first."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.api import SamplingParams
+    rng = np.random.default_rng(243)
+    short = rng.integers(0, cfg.vocab_size, 40)
+    long = rng.integers(0, cfg.vocab_size, 500)
+    out = {}
+    for label, kw in (("chunked", dict(prefill_chunk=CHUNK)), ("whole", {})):
+        eng = ServingEngine(cfg, params, EngineConfig(
+            mode="decoder", max_batch=CONT_BATCH, pad_buckets=(128, 512),
+            max_new_tokens=64, **kw), device="cuda")
+        try:
+            eng.warmup(batch_sizes=[1])
+            h = eng.generate(short, SamplingParams(max_new_tokens=64))
+            it = iter(h)
+            next(it)
+            times = []
+            t_join = None
+            for i, _ in enumerate(it):
+                times.append(time.perf_counter())
+                if i == 4 * eng.ec.decode_segment:
+                    t_join = time.perf_counter()
+                    hl = eng.generate(long, SamplingParams(max_new_tokens=1))
+            hl.result(timeout=300)
+            t_done = hl.result().timing.prefill_s
+        finally:
+            eng.close()
+        gaps = np.diff([t for j, t in enumerate(times)
+                        if j % eng.ec.decode_segment == 0]) * 1e3
+        during = [g for g, t in zip(gaps, times[eng.ec.decode_segment::
+                                                eng.ec.decode_segment])
+                  if t >= t_join]
+        out[label] = (float(np.median(gaps)), float(max(during[:8])),
+                      t_done * 1e3)
+        print(f"stall, {label}: the in-flight row's segment gap median "
+              f"{out[label][0]:.3f} ms, the largest while the 500-token "
+              f"prompt prefills {out[label][1]:.3f} ms; that prompt's "
+              f"prefill wall {out[label][2]:.3f} ms [{name}]", flush=True)
+    return out
+
+
+def phase_chunked_hybrid(cfg, params, kernels, name):
+    """24, the hybrid. RecurrentGemma-9B at full depth, 4 greedy requests
+    of 385-500 tokens (4 chunks each) at bucket 512, ``prefill_chunk=128``,
+    served one after another: each request's 16 tokens must equal direct
+    calls (``prefill_chunk`` chunk by chunk, the first token at the last
+    real position, ``decode_segment`` at the engine's decode width), and
+    K5 must launch 26 times per chunk program run (the recurrent layers,
+    once each, with the carried state)."""
+    from repro_torch.models import decode_segment, make_caches
+    from repro_torch.models.layers import head_weight
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.api import SamplingParams
+    rng = np.random.default_rng(244)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(385, 501, 4)]
+    eng = ServingEngine(cfg, params, EngineConfig(
+        mode="decoder", max_batch=4, pad_buckets=(512,),
+        max_new_tokens=NEW_TOKENS, prefill_chunk=CHUNK), device="cuda")
+    calls = []
+    chunk_call = eng._chunk_call
+
+    def counted(*a, **k):
+        calls.append(a[0])
+        return chunk_call(*a, **k)
+    eng._chunk_call = counted
+    t0 = time.perf_counter()
+    try:
+        reset_launches(kernels)
+        got = [eng.generate(p, SamplingParams()).result(timeout=600).tokens
+               for p in prompts]
+        launches = tuple(fn.launches for fn in kernels)
+    finally:
+        eng.close()
+    t_serve = time.perf_counter() - t0
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    n_rec = sum(k == "rglru" for k in cfg.pattern) * cfg.n_periods
+    same = 0
+    with torch.inference_mode():
+        for p, g in zip(prompts, got):
+            caches = make_caches(cfg, 1, 512 + NEW_TOKENS,
+                                 dtype=torch.float32, device="cuda")
+            lg = chunk_logits_into(cfg, params, p, CHUNK, w, caches)
+            first = lg.argmax(-1).to(torch.int32)[:, None]
+            rest, _, _, _ = decode_segment(
+                cfg, params, first,
+                torch.tensor([[len(p)]], dtype=torch.int32, device="cuda"),
+                caches, n_steps=NEW_TOKENS - 1, head_w=w, decode_width=4)
+            want = torch.cat([first, rest], 1)[0].cpu().numpy()
+            same += int(np.array_equal(g, want))
+    n_chunks = calls.count("cont_chunk")
+    print(f"chunked hybrid: RecurrentGemma-9B, 4 requests of "
+          f"{[len(p) for p in prompts]} tokens at C={CHUNK}: {same} of 4 "
+          f"token-identical to direct chunk-by-chunk calls; {n_chunks} "
+          f"chunk programs, K1..K5 launches {launches} (K5 {n_rec} x "
+          f"{n_chunks} expected); served in {t_serve:.1f} s [{name}]",
+          flush=True)
+    if same != 4 or launches[4] != n_rec * n_chunks or n_chunks != 16:
+        raise AssertionError(f"chunked hybrid: {same} of 4 equal, K5 "
+                             f"{launches[4]} for {n_chunks} chunks")
+    return launches
+
+
+def chunk_logits_into(cfg, params, prompt, C, w, caches):
+    """``prompt`` prefilled chunk by chunk (``prefill_chunk``, chunks of C
+    from position 0, the last padded) into the one-row ``caches``: the
+    first-token logits (1, V)."""
+    from repro_torch.models import prefill_chunk
+    from repro_torch.models.layers import lm_head_apply
+    for s0 in range(0, len(prompt), C):
+        t = torch.zeros((1, C), dtype=torch.long, device="cuda")
+        part = torch.from_numpy(prompt[s0:s0 + C]).cuda()
+        t[0, :len(part)] = part
+        pos = s0 + torch.arange(C, dtype=torch.int32, device="cuda")[None]
+        hid = prefill_chunk(cfg, params, t, pos, caches, return_hidden=True)
+    return lm_head_apply(cfg, None, hid[:, len(part) - 1][:, None],
+                         w=w)[:, 0]
+
+
+# ---------------------------------------------------------- prefix cache
+# (bucket, prefill_chunk): the system prompt is 3/4 of the bucket, whole
+# chunks, so a hit's suffix of 1..bucket/8 tokens runs as one chunk
+PREFIX_BUCKETS = ((128, 32), (512, 128))
+PREFIX_REQUESTS = 8
+
+
+def one_by_one(eng, prompts):
+    """Serve greedy ``prompts`` one after another (each its own join, so
+    hits and inserts do not hang on timing); (results, the window)."""
+    from repro_torch.serving.api import SamplingParams
+    eng.window()
+    out = [eng.generate(p, SamplingParams()).result(timeout=600)
+           for p in prompts]
+    return out, eng.window()
+
+
+def phase_prefix(cfg, params, kernels, name, tie, kv_quant=None):
+    """25. The prefix cache at buckets 128 (C=32) and 512 (C=128), float
+    or int8 KV, max_batch 4, greedy requests served one after another.
+    Traffic: a system prompt of 3/4 of the bucket plus a unique suffix of
+    1..bucket/8 tokens. The first request misses and stores the system
+    prompt from its chunked fill; the other 7 hit it and must equal a cold
+    engine's tokens (``prefix_cache=False``) exactly; the counters must be
+    7 hits, 1 miss, 1 insert, 7 x the prompt's tokens hit; the measured
+    window after ``warmup()`` builds nothing. At bucket 512 a donor of
+    exactly one chunk (a whole-prompt join, its KV through K1) serves 6
+    hits, held to phase 24's token rule. A store of one entry's bytes
+    evicts as three families rotate and stays equal to cold. Prints the
+    prefill device ms of a cold request (its chunk programs) against a
+    warm one (one hit program), and the engines' prefill walls."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    tag = " int8 KV" if kv_quant else ""
+    rng = np.random.default_rng(250)
+    launches = None
+    for bucket, C in PREFIX_BUCKETS:
+        V = cfg.vocab_size
+
+        def family(n_sys):
+            sysp = rng.integers(0, V, n_sys)
+            return [np.concatenate([sysp, rng.integers(
+                0, V, int(rng.integers(1, bucket // 8 + 1)))])
+                for _ in range(PREFIX_REQUESTS)]
+        prompts = family(bucket * 3 // 4)
+        fams = [family(bucket * 3 // 4)[:2] for _ in range(3)]
+        rotate = [p for f in fams for p in f]
+        base = dict(mode="decoder", max_batch=4, pad_buckets=(bucket,),
+                    max_new_tokens=NEW_TOKENS, prefill_chunk=C,
+                    kv_quant=kv_quant)
+        cold = ServingEngine(cfg, params, EngineConfig(**base),
+                             device="cuda")
+        try:
+            want, wcold = one_by_one(cold, prompts + rotate)
+        finally:
+            cold.close()
+        eng = ServingEngine(cfg, params, EngineConfig(
+            **base, prefix_cache=True), device="cuda")
+        try:
+            eng.warmup()
+            reset_launches(kernels)
+            got, win = one_by_one(eng, prompts)
+            launches = tuple(fn.launches for fn in kernels)
+            lane = win["lanes"][bucket]
+            entry_bytes = eng._prefix_store(bucket).entry_bytes
+            store_bytes = eng._prefix_store(bucket).pool.nbytes
+            device = prefix_device_ms(eng, bucket, C, prompts)
+        finally:
+            eng.close()
+        same = sum(np.array_equal(g.tokens, w.tokens)
+                   for g, w in zip(got, want))
+        counts = {k: lane[k] for k in ("prefix_hits", "prefix_misses",
+                                        "prefix_inserts",
+                                        "prefix_hit_tokens")}
+        expect = {"prefix_hits": 7, "prefix_misses": 1, "prefix_inserts": 1,
+                  "prefix_hit_tokens": 7 * (bucket * 3 // 4)}
+        walls = [r.timing.prefill_s * 1e3 for r in got]
+        cwalls = [r.timing.prefill_s * 1e3 for r in want[:len(prompts)]]
+        print(f"prefix{tag}, bucket {bucket}, C={C}: {same} of "
+              f"{len(prompts)} token-identical to the cold engine; "
+              f"counters {counts}; window jit_compiles "
+              f"{win['jit_compiles']}, prefix_bytes {lane['prefix_bytes']:,} "
+              f"(the store's pool {store_bytes:,} B); "
+              f"prefill device ms: cold {device[0]:.4f} "
+              f"({-(-len(prompts[0]) // C)} chunk programs), warm "
+              f"{device[1]:.4f} (one hit program); prefill wall mean: cold "
+              f"{np.mean(cwalls[1:]):.3f} ms, warm {np.mean(walls[1:]):.3f} "
+              f"ms [{name}]", flush=True)
+        if same != len(prompts) or counts != expect or win["jit_compiles"]:
+            raise AssertionError(f"prefix{tag} bucket {bucket}: {same} "
+                                 f"equal, counters {counts} != {expect}, "
+                                 f"{win['jit_compiles']} captures")
+        tiny = ServingEngine(cfg, params, EngineConfig(
+            **base, prefix_cache=True, prefix_cache_bytes=entry_bytes),
+            device="cuda")
+        try:
+            got, win = one_by_one(tiny, rotate)
+        finally:
+            tiny.close()
+        lane = win["lanes"][bucket]
+        same = sum(np.array_equal(g.tokens, w.tokens)
+                   for g, w in zip(got, want[len(prompts):]))
+        print(f"prefix{tag}, bucket {bucket}, a store of one entry: {same} "
+              f"of {len(rotate)} token-identical to cold; hits "
+              f"{lane['prefix_hits']}, inserts {lane['prefix_inserts']}, "
+              f"evictions {lane['prefix_evictions']}, prefix_bytes "
+              f"{lane['prefix_bytes']:,} (one entry {entry_bytes:,})",
+              flush=True)
+        if (same != len(rotate) or lane["prefix_evictions"] != 2
+                or lane["prefix_hits"] != 3
+                or lane["prefix_bytes"] > entry_bytes):
+            raise AssertionError(f"prefix{tag} one-entry store: {same} "
+                                 f"equal, {lane}")
+        if bucket == 512:
+            whole_donor(cfg, params, base, C, name, tie, kv_quant, rng)
+    return launches
+
+
+def prefix_device_ms(eng, bucket, C, prompts):
+    """Device ms of a request's prefill by its programs, replayed on the
+    engine's captured programs: a cold one's chunk programs (one fill,
+    the first prompt's starts) and a warm one's hit program."""
+    lane = eng._scheduler.lanes[bucket]
+    staging, pool = lane.staging, lane.pool
+    store = eng._prefix_store(bucket)
+    entry = store.trie.entries[0]
+    p = prompts[1]
+    chunks = []
+    for s0 in range(0, len(p), C):
+        part = p[s0:s0 + C]
+        toks = np.zeros((1, C), np.int64)
+        toks[0, :len(part)] = part
+        chunks.append((toks, np.array([s0], np.int32),
+                       np.array([len(part)], np.int32)))
+
+    def cold_prefill():
+        for toks, start, nvalid in chunks:
+            eng._chunk_call("cont_chunk", bucket, staging, staging, toks,
+                            start, nvalid, [0], [0])
+    cold = program_reading(cold_prefill, n_wall=2)[1] or float("nan")
+    suffix = p[entry.n_tokens:]
+    toks = np.zeros((1, C), np.int64)
+    toks[0, :len(suffix)] = suffix
+    warm = program_reading(lambda: eng._chunk_call(
+        "cont_hit", bucket, store.pool, pool, toks,
+        np.array([entry.n_tokens], np.int32),
+        np.array([len(suffix)], np.int32), [entry.slot], [0]),
+        n_wall=2)[1] or float("nan")
+    return cold, warm
+
+
+def whole_donor(cfg, params, base, C, name, tie, kv_quant, rng):
+    """25, a whole-join donor: a prompt of exactly one chunk (128 tokens)
+    joins whole (K1) and is stored; 6 prompts extending it by 1..64
+    tokens hit it. Their tokens against a cold engine, by phase 24's
+    rule: a parting only at a near-tie of the cold run."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.api import SamplingParams
+    tag = " int8 KV" if kv_quant else ""
+    donor = rng.integers(0, cfg.vocab_size, C)
+    prompts = [donor] + [np.concatenate([donor, rng.integers(
+        0, cfg.vocab_size, int(rng.integers(1, 65)))]) for _ in range(6)]
+    outs = {}
+    for on in (False, True):
+        eng = ServingEngine(cfg, params, EngineConfig(**base,
+                                                      prefix_cache=on),
+                            device="cuda")
+        try:
+            res, win = one_by_one(eng, prompts)
+        finally:
+            eng.close()
+        outs[on] = [r.tokens for r in res]
+    hits = win["lanes"][base["pad_buckets"][0]]["prefix_hits"]
+    parted = []
+    for i, (a, b) in enumerate(zip(outs[True], outs[False])):
+        if np.array_equal(a, b):
+            continue
+        d = int(np.argmin(a == b))
+        with torch.inference_mode():
+            margin = choice_margin(
+                stream_logits(cfg, params, prompts[i], 512, b, d,
+                              kv_quant=kv_quant, chunk=C, decode_width=4),
+                SamplingParams(), len(prompts[i]) + d, b[d])
+        parted.append((i, d, margin))
+    print(f"prefix{tag}, a whole-join donor of {C} tokens: {hits} hits; "
+          f"{len(prompts) - len(parted)} of {len(prompts)} token-identical "
+          f"to cold; partings (request, step, margin) {parted} (near-tie "
+          f"threshold {tie:.4e}) [{name}]", flush=True)
+    if hits != 6 or any(m >= tie for *_, m in parted):
+        raise AssertionError(f"prefix{tag} whole-join donor: {hits} hits, "
+                             f"partings {parted}")
+
+
+# ------------------------------------------------- the lab's decoder cells
+def phase_lab_decoder(kernels, name):
+    """26. The deploy lab's decoder scenarios on the card:
+    ``repro_torch.launch.experiment.main`` with ``--staggered
+    --prefix-cache --quant --arch qwen2-0.5b`` at the CLI's defaults
+    (buckets 16/32, max_batch 4, chunks of 8, 8 requests 50 ms apart, 8
+    new tokens) over the 21 paper profiles, full-width Qwen2-0.5B. Every
+    record must carry JAX's fields, its cells finite, its decoder window
+    compile-clean with 64 tokens; the drift report's ``prefix_cache`` and
+    ``quant`` cells (one per profile) are printed. Returns K1..K5
+    launches."""
+    from repro_torch.deploy.profiles import paper_profiles
+    from repro_torch.deploy.runner import RECORD_FIELDS, read_jsonl
+    from repro_torch.launch import experiment
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "lab"
+    t0 = time.perf_counter()
+    reset_launches(kernels)
+    experiment.main(["--staggered", "--prefix-cache", "--quant", "--arch",
+                     "qwen2-0.5b", "--out-dir", str(out_dir)])
+    launches = tuple(fn.launches for fn in kernels)
+    rows = read_jsonl(str(out_dir / experiment.GRID_FILE))
+    with open(out_dir / experiment.DRIFT_FILE) as f:
+        drift = json.load(f)
+    names = ["ladder", "staggered", "staggered_shared",
+             "staggered_shared_pc", "staggered_quant", "staggered_quant_q8"]
+    n_prof = len(paper_profiles())
+    if [r["scenario"]["name"] for r in rows] != [
+            n for n in names for _ in range(n_prof)]:
+        raise AssertionError("lab records: not one per (scenario, profile)")
+    for r in rows:
+        if set(r) != set(RECORD_FIELDS):
+            raise AssertionError(f"record fields {sorted(r)}")
+        if r["scenario"]["mode"] != "decoder":
+            continue
+        c, win = r["cells"][0], r["engine_window"]
+        if (c["n_requests"] != 8 or c["total_tokens"] != 64
+                or win["jit_compiles"] != 0 or not all(
+                    np.isfinite(c[k]) and c[k] > 0 for k in
+                    ("latency_p50_s", "tokens_per_s", "requests_per_s"))):
+            raise AssertionError(f"lab cell {r['scenario']['name']} "
+                                 f"{r['profile']['machine']}: {c}, "
+                                 f"{win['jit_compiles']} captures")
+    pc, q8 = drift["prefix_cache"], drift["quant"]
+    if len(pc) != n_prof or len(q8) != n_prof:
+        raise AssertionError(f"{len(pc)} prefix-cache and {len(q8)} quant "
+                             f"cells for {n_prof} profiles")
+    hits = sum(l["prefix_hits"] for r in rows
+               if r["scenario"]["name"] == "staggered_shared_pc"
+               for l in r["engine_window"]["lanes"].values())
+    print(f"lab decoder scenarios: {len(rows)} records, prefix hits "
+          f"{hits} over the _pc runs, K1..K5 launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s [{name}]", flush=True)
+    for a, b in zip(pc, q8):
+        print(f"  {a['profile']}: $/1M requests shared-prompt "
+              f"{a['usd_per_1m_requests_off']:.4f} -> "
+              f"{a['usd_per_1m_requests_pc']:.4f} with the prefix cache "
+              f"(prefill {a['prefill_mean_off_s'] * 1e3:.3f} -> "
+              f"{a['prefill_mean_pc_s'] * 1e3:.3f} ms); float "
+              f"{b['usd_per_1m_requests_off']:.4f} -> int8 "
+              f"{b['usd_per_1m_requests_q8']:.4f}, footprint "
+              f"{b['footprint_bytes_off']:,} -> {b['footprint_bytes_q8']:,} "
+              f"B", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -2412,6 +3304,10 @@ def main() -> int:
     from repro_torch.serving import EngineConfig, ServingEngine
 
     t_start = time.perf_counter()
+
+    def clock(label):
+        print(f"clock: {label} done at {time.perf_counter() - t_start:.1f} "
+              f"s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = card()
@@ -2692,20 +3588,54 @@ def main() -> int:
     phase_decode_step(qcfg, qq, name, kv_quant="int8", modes=(False,),
                       label=" int8 W+KV")
 
+    clock("phases 1-14")
+
     # ---- 21. captured programs against uncaptured calls, and timed
     phase_captured_programs(cfg, params, qcfg, qparams, name)
 
-    # ---- 22. one row's bits across batch widths, float and int8
+    clock("phase 21")
+
+    # ---- 22. one row's bits across batch widths, float and int8: the
+    # captured prefill and decode step, the encoder program and the eager
+    # decoder
     phase_width_determinism(qcfg, qparams, "float")
     phase_width_determinism(qcfg, qq, "int8 W+KV", kv_quant="int8")
+    phase_encoder_widths(cfg, params, "float")
+    phase_encoder_widths(cfg, params, "int8", quant="int8")
+    phase_eager_decoder_widths(qcfg, qparams, "float")
+    phase_eager_decoder_widths(qcfg, qparams, "int8 W+KV", quant="int8")
+
+    clock("phase 22")
 
     # ---- 23. the default continuous decoder, float and int8
     cont = phase_continuous(qcfg, qparams, kernels, name)
     cont8 = phase_continuous(qcfg, qparams, kernels, name, quant="int8")
     phase_continuous_long(qcfg, qparams, name)
     phase_continuous_long(qcfg, qparams, name, quant="int8")
+
+    clock("phase 23")
+
+    # ---- 24. chunked prefill: model level, the chunk program's rows, the
+    # continuous engine float and int8, the stall it cuts
+    tie, tie8 = phase_chunk_model(qcfg, qparams, qq, name)
+    chunk_attention_timings(qcfg, name)
+    phase_chunk_rows(qcfg, qparams, name)
+    phase_chunk_rows(qcfg, qq, name, kv_quant="int8", label=" int8 W+KV")
+    chunked = phase_chunked_continuous(qcfg, qparams, kernels, name, tie)
+    chunked8 = phase_chunked_continuous(qcfg, qparams, kernels, name, tie8,
+                                        quant="int8")
+    stall_reading(qcfg, qparams, name)
+
+    clock("phase 24")
+
+    # ---- 25. the prefix cache, float and int8 KV
+    prefix = phase_prefix(qcfg, qparams, kernels, name, tie)
+    prefix8 = phase_prefix(qcfg, qparams, kernels, name, tie8,
+                           kv_quant="int8")
     del qq, gq
     torch.cuda.empty_cache()
+
+    clock("phase 25")
 
     # ---- 15. K5 against its plain version
     k5_err, k5_checked = phase_scan_parity(rs)
@@ -2758,11 +3688,22 @@ def main() -> int:
           f"{wallh:.3f} s = {n_tokh / wallh:.1f} tokens/s, request p50 "
           f"{hyb_served['latency_p50_s'] * 1e3:.3f} ms; weight_bytes "
           f"{hyb_bytes:,} [{name}]", flush=True)
+    clock("phases 15-19")
+
+    # ---- 24, the hybrid: chunked prefill at full depth
+    hyb_chunked = phase_chunked_hybrid(hcfg, hparams, kernels, name)
     del hparams
     torch.cuda.empty_cache()
 
+    clock("phase 24, the hybrid")
+
     # ---- 20. the paper's ladder through the deploy lab, float and int8
     ladder_launches, ladder8_launches = phase_paper_ladder(kernels, name)
+
+    clock("phase 20")
+
+    # ---- 26. the lab's decoder scenarios
+    lab = phase_lab_decoder(kernels, name)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -2778,7 +3719,12 @@ def main() -> int:
                 "ladder float": ladder_launches[i],
                 "ladder int8": ladder8_launches[i],
                 "continuous": cont[i],
-                "continuous int8": cont8[i]}
+                "continuous int8": cont8[i],
+                "chunked": chunked[i], "chunked int8": chunked8[i],
+                "chunked hybrid": hyb_chunked[i],
+                "prefix (bucket 512)": prefix[i],
+                "prefix int8 KV (bucket 512)": prefix8[i],
+                "lab decoder scenarios": lab[i]}
 
     def hybrid_row(times, err=None, checked_256=None):
         ms, plain_ms, lib_ms, bound_ms, bound_by = times

@@ -40,14 +40,15 @@ def attn_block_sizes(kind: str, sq: int, *, bh: int = 1,
     only for its live tiles; the kernel is built for that one tile. The
     heuristic is not yet tuned by measurement. (The TPU table also keys
     on skv and the window.)
-    Attention of a chunk of queries over a cache (chunked prefill, ROADMAP
-    Queue 1 item 7) has no kernel yet."""
+    Attention of a chunk of queries over a cache has no kernel: chunked
+    prefill runs ``naive_attention`` in both packages."""
     if kind == "decode":
         return 1, DECODE_BLOCK_K
     if kind != "prefill":
         raise NotImplementedError(
-            f"attention kind {kind!r}: chunked prefill over a cache is "
-            f"ROADMAP Queue 1 item 7, speculative verify item 10")
+            f"attention kind {kind!r} has no kernel: a prefill chunk over "
+            f"the cache runs naive_attention in both packages, and "
+            f"speculative verify is ROADMAP Queue 1 item 10")
     bqs, bk = kernel_tiles(dtype, head_dim)
     fits = [bq for bq in bqs
             if bq == 32 or sq > bq // 2 and bh * -(-sq // bq) >= 2 * H100_SMS]

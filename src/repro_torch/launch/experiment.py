@@ -11,24 +11,27 @@ against the paper.
   PYTHONPATH=src python -m repro_torch.launch.experiment --smoke \\
       --device cpu
 
+  # the decoder scenarios on the card: staggered arrivals, the
+  # prefix-cache and the int8 A/B pairs, full-width Qwen2-0.5B
+  PYTHONPATH=src python -m repro_torch.launch.experiment \\
+      --staggered --prefix-cache --quant --arch qwen2-0.5b
+
 The counterpart of ``repro/launch/experiment.py``, with its flags and
-defaults for the encoder grid. It differs in three ways: the configs are
-full width on the card unless ``--smoke`` asks for the small ones
-(``--device cpu`` runs on the CPU); the decoder scenarios (``--staggered``,
-``--prefix-cache``, ``--quant``, ``--spec-decode``) raise
-``NotImplementedError`` before any engine is built, because they serve
-through the continuous decoder that ROADMAP Queue 1 items 6-10 port, and
-the decoder-only knobs (``--arch``, ``--requests``, ``--gap``,
-``--max-new-tokens``, ``--spec-k``, ``--segment-width``) and the A/B
-pricers of those scenarios come with them; and the artifacts carry the
-port's names, so a run never overwrites the JAX package's:
+defaults. It differs in three ways: the configs are full width on the
+card unless ``--smoke`` asks for the small ones (``--device cpu`` runs on
+the CPU); ``--spec-decode`` (and with it ``--spec-k`` and the
+``spec_decode`` pricer) raises ``NotImplementedError`` before any engine
+is built, because speculative decoding is ROADMAP Queue 1 item 10; and
+the artifacts carry the port's names, so a run never overwrites the JAX
+package's:
 
   EXPERIMENT_torch_grid.jsonl   one ExperimentRecord per (profile x
                                 scenario)
   EXPERIMENT_torch_drift.json   drift_report(): measured $/1M sentences,
                                 cheapest-SLO machine, GPU-vs-CPU premium and
                                 the findings ledger, each diffed vs
-                                core.analysis
+                                core.analysis; with ``--prefix-cache`` and
+                                ``--quant`` also the A/B pricers' cells
 
 Every profile runs on this host: a $/1M sentences figure prices this
 host's throughput at the profile's list price (``deploy/runner.py``).
@@ -41,6 +44,7 @@ import os
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.core.loadtest import mixed_bucket_prompts
 from repro_torch.deploy.profiles import paper_profiles, profile_by_key
 from repro_torch.deploy.report import drift_report, format_drift, write_report
 from repro_torch.deploy.runner import (KIND_LADDER, KIND_STAGGERED,
@@ -48,58 +52,81 @@ from repro_torch.deploy.runner import (KIND_LADDER, KIND_STAGGERED,
                                        smoke_grid_profiles)
 from repro_torch.models import init_params
 from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving.api import SamplingParams
 
 GRID_FILE = "EXPERIMENT_torch_grid.jsonl"
 DRIFT_FILE = "EXPERIMENT_torch_drift.json"
+DECODER_ARCHS = ("qwen2-0.5b", "recurrentgemma-9b")
 
 
 def check_scenarios(scenarios) -> None:
     """Raise ``NotImplementedError`` if any scenario is one the port cannot
-    serve yet, naming the ROADMAP Queue 1 items they need. Every decoder
-    scenario of the JAX factory runs the continuous decoder (ported) with
-    ``prefill_chunk`` (item 7); ``_pc`` adds the prefix cache (item 8)
-    and ``_sd`` speculative decoding (item 10)."""
-    decoder = [s.name for s in scenarios if s.mode == "decoder"]
-    if not decoder:
-        return
-    needs = ["item 7 (prefill_chunk)"]
-    if any(n.endswith("_pc") for n in decoder):
-        needs.append("item 8 (the prefix cache)")
-    if any(n.endswith("_sd") for n in decoder):
-        needs.append("item 10 (speculative decoding)")
-    raise NotImplementedError(
-        f"decoder scenarios {decoder} serve through the continuous decoder "
-        f"with features the port does not have yet: ROADMAP Queue 1 "
-        f"{', '.join(needs)}")
+    serve yet: the ``_sd`` pair runs speculative decoding, ROADMAP Queue
+    1 item 10."""
+    spec = [s.name for s in scenarios if s.name.endswith("_sd")]
+    if spec:
+        raise NotImplementedError(
+            f"scenarios {spec} serve through speculative decoding, which "
+            f"the port does not have yet: ROADMAP Queue 1 item 10")
 
 
 def make_engine_factory(args):
-    """(scenario) -> (engine, sentences, sampling) for the encoder
-    scenarios: GECToR-base (``--smoke``: its small config) without a head,
-    as the JAX factory builds it, on ``args.device`` (default: the card),
-    weights drawn from ``args.seed``; 64 sentences of 8 to
-    ``bucket // 2 + 8`` tokens; every batch size of the bucket warmed up
-    before the engine is returned."""
+    """(scenario) -> (engine, sentences, sampling), as the JAX factory
+    builds them, on ``args.device`` (default: the card), weights drawn
+    from ``args.seed``, every program warmed up before the engine is
+    returned.
+
+    Encoder scenarios serve GECToR-base (``--smoke``: its small config)
+    without a head, 64 sentences of 8 to ``bucket // 2 + 8`` tokens.
+    Decoder scenarios serve ``--arch`` through the continuous scheduler
+    over two buckets ``(bucket // 2, bucket)``, prompts longer than
+    ``max(bucket // 4, 8)`` tokens prefilling in chunks of that size:
+    the mixed-bucket prompts (``staggered``, ``staggered_quant``, with
+    ``_q8`` int8 weights and KV), or 64 prompts that repeat one system
+    prompt of 3/4 of the bucket plus a unique suffix of 1 to bucket // 8
+    tokens (``staggered_shared``, with ``_pc`` the prefix cache)."""
     def factory(scenario: WorkloadScenario):
         check_scenarios([scenario])
-        cfg = get_config("gector-base", smoke=args.smoke)
+        decoder = scenario.mode == "decoder"
+        shared = scenario.name.startswith("staggered_shared")
+        cfg = get_config(args.arch if decoder else "gector-base",
+                         smoke=args.smoke)
         params = init_params(cfg, args.seed, device=args.device)
+        buckets = ((args.bucket // 2, args.bucket) if decoder
+                   else (args.bucket,))
         quant = "int8" if scenario.name.endswith("_q8") else None
         eng = ServingEngine(cfg, params, EngineConfig(
             mode=scenario.mode, max_batch=args.max_batch,
-            pad_buckets=(args.bucket,),
+            pad_buckets=buckets,
             max_new_tokens=scenario.max_new_tokens,
             max_inflight=args.max_inflight,
-            weight_quant=quant, kv_quant=quant),
-            device=args.device)
+            prefill_chunk=max(args.bucket // 4, 8) if decoder else None,
+            segment_width=args.segment_width,
+            prefix_cache=scenario.name.endswith("_pc"),
+            weight_quant=quant, kv_quant=quant), device=args.device)
         rng = np.random.default_rng(args.seed)
-        sentences = [rng.integers(0, cfg.vocab_size,
-                                  (int(rng.integers(8, args.bucket // 2
-                                                    + 8)),))
-                     for _ in range(64)]
-        # every batch size of the bucket, outside the measured windows
+        if shared:
+            sysprompt = rng.integers(0, cfg.vocab_size,
+                                     (args.bucket * 3 // 4,))
+            sentences = [np.concatenate([
+                sysprompt,
+                rng.integers(0, cfg.vocab_size,
+                             (int(rng.integers(1, args.bucket // 8 + 1)),))])
+                for _ in range(64)]
+        elif decoder:
+            sentences = mixed_bucket_prompts(buckets, 64, cfg.vocab_size,
+                                             rng_seed=args.seed)
+        else:
+            sentences = [rng.integers(0, cfg.vocab_size,
+                                      (int(rng.integers(8, args.bucket // 2
+                                                        + 8)),))
+                         for _ in range(64)]
+        # every program of every bucket, staging pools and prefix stores
+        # included, outside the measured windows
         eng.warmup()
-        return eng, sentences, None
+        sampling = (SamplingParams(max_new_tokens=scenario.max_new_tokens)
+                    if decoder else None)
+        return eng, sentences, sampling
     return factory
 
 
@@ -108,21 +135,103 @@ def build_scenarios(args) -> list:
                                   mode="encoder",
                                   ladder=tuple(args.ladder),
                                   repeats=args.repeats)]
-    if args.staggered:
-        scenarios.append(WorkloadScenario(
-            name="staggered", kind=KIND_STAGGERED, mode="decoder"))
+    names = (["staggered"] if args.staggered else [])
     # the JAX CLI's A/B pairs at equal offered load: prefix cache off vs
-    # on, int8 weights + KV vs float, speculative vs plain decoding
-    for flag, names in (("prefix_cache", ("staggered_shared",
-                                          "staggered_shared_pc")),
-                        ("quant", ("staggered_quant", "staggered_quant_q8")),
-                        ("spec_decode", ("staggered_spec",
-                                         "staggered_spec_sd"))):
+    # on over shared-prompt traffic, int8 weights + KV vs float,
+    # speculative vs plain decoding
+    for flag, pair in (("prefix_cache", ("staggered_shared",
+                                         "staggered_shared_pc")),
+                       ("quant", ("staggered_quant", "staggered_quant_q8")),
+                       ("spec_decode", ("staggered_spec",
+                                        "staggered_spec_sd"))):
         if getattr(args, flag):
-            scenarios += [WorkloadScenario(
-                name=name, kind=KIND_STAGGERED, mode="decoder")
-                for name in names]
-    return scenarios
+            names += pair
+    return scenarios + [WorkloadScenario(
+        name=name, kind=KIND_STAGGERED, mode="decoder",
+        n_requests=args.requests, gap_s=args.gap,
+        max_new_tokens=args.max_new_tokens) for name in names]
+
+
+def _usd_per_1m(prof, rps) -> float:
+    return prof["hourly_cost_usd"] / 3600.0 / max(rps, 1e-9) * 1e6
+
+
+def prefix_cache_cells(records) -> list:
+    """$/1M-requests for the staggered_shared A/B pair, per profile — the
+    deploy-lab cell recording what the prefix cache is worth at equal
+    offered load (same gap, same prompts; only the engine knob differs).
+    JAX's pricer, field for field."""
+    by_key = {}
+    for rec in records:
+        d = rec.to_dict() if hasattr(rec, "to_dict") else rec
+        name = d["scenario"]["name"]
+        if not name.startswith("staggered_shared"):
+            continue
+        prof, cell = d["profile"], d["cells"][0]
+        rps = cell["requests_per_s"]
+        by_key.setdefault(f"{prof['provider']}/{prof['machine']}", {})[
+            "pc" if name.endswith("_pc") else "off"] = {
+                "usd_per_1m_requests": _usd_per_1m(prof, rps),
+                "requests_per_s": rps,
+                "prefill_mean_s": cell["prefill_mean_s"]}
+    out = []
+    for key, pair in sorted(by_key.items()):
+        if "off" not in pair or "pc" not in pair:
+            continue
+        off, pc = pair["off"], pair["pc"]
+        out.append({
+            "profile": key,
+            "usd_per_1m_requests_off": off["usd_per_1m_requests"],
+            "usd_per_1m_requests_pc": pc["usd_per_1m_requests"],
+            "usd_drop_pct": 100.0 * (1 - pc["usd_per_1m_requests"]
+                                     / max(off["usd_per_1m_requests"],
+                                           1e-12)),
+            "prefill_mean_off_s": off["prefill_mean_s"],
+            "prefill_mean_pc_s": pc["prefill_mean_s"]})
+    return out
+
+
+def quant_cells(records) -> list:
+    """$/1M-requests and resident-memory footprint for the staggered_quant
+    A/B pair, per profile: the footprint is the record's engine
+    ``weight_bytes`` plus the lanes' ``kv_bytes`` gauges of its engine
+    window. JAX's pricer, field for field."""
+    by_key = {}
+    for rec in records:
+        d = rec.to_dict() if hasattr(rec, "to_dict") else rec
+        name = d["scenario"]["name"]
+        if not name.startswith("staggered_quant"):
+            continue
+        prof, cell = d["profile"], d["cells"][0]
+        rps = cell["requests_per_s"]
+        lanes = d["engine_window"].get("lanes", {})
+        footprint = (d["engine"]["weight_bytes"]
+                     + sum(s.get("kv_bytes", 0) for s in lanes.values()))
+        by_key.setdefault(f"{prof['provider']}/{prof['machine']}", {})[
+            "q8" if name.endswith("_q8") else "off"] = {
+                "usd_per_1m_requests": _usd_per_1m(prof, rps),
+                "requests_per_s": rps,
+                "footprint_bytes": footprint,
+                "tokens_per_s": cell["tokens_per_s"]}
+    out = []
+    for key, pair in sorted(by_key.items()):
+        if "off" not in pair or "q8" not in pair:
+            continue
+        off, q8 = pair["off"], pair["q8"]
+        out.append({
+            "profile": key,
+            "usd_per_1m_requests_off": off["usd_per_1m_requests"],
+            "usd_per_1m_requests_q8": q8["usd_per_1m_requests"],
+            "usd_drop_pct": 100.0 * (1 - q8["usd_per_1m_requests"]
+                                     / max(off["usd_per_1m_requests"],
+                                           1e-12)),
+            "footprint_bytes_off": off["footprint_bytes"],
+            "footprint_bytes_q8": q8["footprint_bytes"],
+            "footprint_ratio": off["footprint_bytes"]
+                               / max(q8["footprint_bytes"], 1),
+            "tokens_per_s_off": off["tokens_per_s"],
+            "tokens_per_s_q8": q8["tokens_per_s"]})
+    return out
 
 
 def main(argv=None) -> None:
@@ -141,21 +250,32 @@ def main(argv=None) -> None:
     ap.add_argument("--ladder", type=int, nargs="*", default=None)
     ap.add_argument("--repeats", type=int, default=None)
     ap.add_argument("--staggered", action="store_true",
-                    help="add the open-loop decoder scenario (not ported: "
-                         "raises)")
+                    help="add the open-loop decoder scenario")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="add the shared-prompt staggered A/B pair (not "
-                         "ported: raises)")
+                    help="add the shared-prompt staggered A/B pair "
+                         "(prefix_cache off vs on) and report the "
+                         "$/1M-requests drop per profile")
     ap.add_argument("--quant", action="store_true",
                     help="add the quantized-serving staggered A/B pair "
-                         "(not ported: raises)")
+                         "(int8 weights + int8 KV vs float) and report "
+                         "the per-profile footprint + $/1M-requests delta")
     ap.add_argument("--spec-decode", action="store_true",
                     help="add the speculative-decoding staggered A/B pair "
-                         "(not ported: raises)")
+                         "(not ported: raises, ROADMAP Queue 1 item 10)")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=DECODER_ARCHS,
+                    help="decoder arch of the decoder scenarios")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--gap", type=float, default=0.05)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-inflight", type=int, default=None)
     ap.add_argument("--bucket", type=int, default=32,
                     help="pad bucket (and prompt-length ceiling)")
+    ap.add_argument("--segment-width", default="adaptive",
+                    choices=("adaptive", "fixed"),
+                    help="decoder decode-segment widths: occupancy-"
+                         "adaptive tiers (default) or the fixed "
+                         "max_batch-wide A/B baseline")
     ap.add_argument("--target-ns", type=int, default=None,
                     help="NS for the cheapest-SLO question (default: the "
                          "largest ladder cell actually run)")
@@ -188,10 +308,29 @@ def main(argv=None) -> None:
                               progress=lambda msg: print(f"[run] {msg}",
                                                          flush=True))
     report = drift_report(records, target_ns=args.target_ns)
+    if args.prefix_cache:
+        report["prefix_cache"] = prefix_cache_cells(records)
+    if args.quant:
+        report["quant"] = quant_cells(records)
     write_report(report, drift_path)
     print(f"[out] {grid_path} ({len(records)} records)")
     print(f"[out] {drift_path}")
     print(format_drift(report))
+    for cell in report.get("prefix_cache", []):
+        print(f"prefix-cache {cell['profile']}: "
+              f"${cell['usd_per_1m_requests_off']:.2f} -> "
+              f"${cell['usd_per_1m_requests_pc']:.2f} per 1M requests "
+              f"({cell['usd_drop_pct']:+.1f}% cheaper), prefill mean "
+              f"{cell['prefill_mean_off_s']*1e3:.1f} -> "
+              f"{cell['prefill_mean_pc_s']*1e3:.1f} ms")
+    for cell in report.get("quant", []):
+        print(f"quant {cell['profile']}: "
+              f"${cell['usd_per_1m_requests_off']:.2f} -> "
+              f"${cell['usd_per_1m_requests_q8']:.2f} per 1M requests "
+              f"({cell['usd_drop_pct']:+.1f}%), footprint "
+              f"{cell['footprint_bytes_off']} -> "
+              f"{cell['footprint_bytes_q8']} bytes "
+              f"({cell['footprint_ratio']:.2f}x smaller)")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ keep the JAX layout: ``wq``/``wk``/``wv`` as (d, h, hd), ``wo`` as
 attention goes through ``ops.mha_prefill`` (K1) and single-step decode
 through ``ops.gqa_decode`` (K2): the CUDA kernels on a CUDA tensor, their
 plain versions on a CPU one. ``naive_attention`` is the plain path the JAX
-models run, kept as the model-level reference (``plain_attention=True``).
+models run, kept as the model-level reference (``plain_attention=True``),
+and the attention of a prefill chunk over the cache, which no TPU kernel
+covers in either package.
 The projections go through ``qeinsum``: ``torch.einsum`` for a float
 weight, K3 for an int8 leaf (``plain_matmul=True``: its plain version).
 
@@ -214,5 +216,38 @@ def attn_decode(cfg, p, x, positions, cache, *, window=None,
         out = ops.gqa_decode(q, rk, rv, positions[:, 0], cache["pos"],
                              window=window, softcap=softcap,
                              width=decode_width)
+    return qeinsum("bshk,hkd->bsd", out, p["wo"],
+                   plain_matmul=plain_matmul), cache
+
+
+def attn_prefill_chunk(cfg, p, x, positions, cache, *, window=None,
+                       plain_matmul=False, rope=None):
+    """One chunk of an incremental prefill (JAX's ``attn_prefill_chunk``):
+    the chunk's queries attend over the cached ring plus the chunk
+    itself, then the chunk's K/V are written at ``positions % L`` (in
+    place) and ``len`` grows by S. When S >= L only the chunk's last L
+    positions are written, each at its ring slot. Stale ring entries
+    sharing a slot with the chunk lie a whole window behind every query
+    and empty slots hold pos = -1, so the mask drops both. Attention
+    reads the fresh chunk's K/V raw and an int8 cache gets them
+    quantized only at the write, as in JAX. The attention is
+    ``naive_attention`` on either device: JAX computes it with jnp
+    outside any Pallas kernel. x: (B, S, d); positions: (B, S) absolute.
+    Returns (out, cache)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions, rope, plain_matmul)
+    L = cache["k"].shape[1]
+    ck, cv = _cache_read_kv(cache, q.dtype)
+    kv_pos = torch.cat([cache["pos"], positions.to(cache["pos"].dtype)], 1)
+    out = naive_attention(q, torch.cat([ck, k], 1), torch.cat([cv, v], 1),
+                          positions, kv_pos, causal=True, window=window,
+                          softcap=cfg.attn.logit_softcap)
+    lo = max(0, S - L)
+    slots = positions[:, lo:].long() % L
+    bidx = torch.arange(B, device=x.device)[:, None]
+    for key, val in _kv_payload(cache, k[:, lo:], v[:, lo:]).items():
+        cache[key][bidx, slots] = val
+    cache["pos"][bidx, slots] = positions[:, lo:].to(cache["pos"].dtype)
+    cache["len"] += S
     return qeinsum("bshk,hkd->bsd", out, p["wo"],
                    plain_matmul=plain_matmul), cache

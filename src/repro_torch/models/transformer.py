@@ -6,7 +6,8 @@ Port of ``repro/models/transformer.py`` for stacks of three blocks:
 cache) and ``rglru`` (Griffin's recurrent block, ``models/rglru.py``),
 with QKV bias, rotary embeddings, a gated MLP and tied embeddings (Qwen2,
 RecurrentGemma). Modes ``full`` (whole sequences, optionally filling
-caches) and ``decode`` (one step against the caches). Parameters and
+caches), ``decode`` (one step against the caches) and ``chunk`` (a
+prefill chunk that continues the caches). Parameters and
 caches keep the JAX trees: one ``blocks/blk{j}`` per pattern position,
 stacked over a leading period axis. The stack runs in JAX's order: for
 each pattern position j, every period of ``blk{j}`` (JAX scans each
@@ -133,6 +134,11 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                                     plain_attention=plain_attention,
                                     plain_matmul=plain_matmul, rope=rope,
                                     decode_width=decode_width)
+    elif mode == "chunk":
+        a, _ = attn_mod.attn_prefill_chunk(cfg, p["attn"], h, positions,
+                                           cache, window=window,
+                                           plain_matmul=plain_matmul,
+                                           rope=rope)
     else:
         a, _ = attn_mod.attn_apply(cfg, p["attn"], h, positions,
                                    causal=causal, window=window, cache=cache,
@@ -154,7 +160,9 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     ``mode="full"`` runs whole sequences and, given ``caches``
     (``make_caches``; causal prefill from empty caches), fills them;
     ``mode="decode"`` runs one step per row at ``positions`` (B, 1)
-    against ``caches``. Caches are updated in place. Returns hidden
+    against ``caches``; ``mode="chunk"`` runs a prefill chunk at
+    ``positions`` (B, S) over ``caches`` and extends them (see
+    ``prefill_chunk``). Caches are updated in place. Returns hidden
     states (B, S, d_model) in the model dtype with ``return_hidden``, else
     fp32 logits (B, S, padded_vocab); ``head_w`` is ``head_weight``'s
     matrix when the caller cast it once. ``plain_attention`` swaps the
@@ -166,14 +174,14 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     ``quantize_params``' tree: its int8 projections go through K3. With
     ``cfg.embed_scale`` the embedding is scaled by sqrt(d_model), rounded
     to the model dtype, as JAX does for the Gemma family."""
-    if mode in ("chunk", "verify"):
+    if mode == "verify":
         raise NotImplementedError(
-            f"mode={mode!r}: chunked prefill is ROADMAP Queue 1 item 7, "
-            f"speculative verify item 10")
-    if mode not in ("full", "decode"):
-        raise ValueError(f"mode must be 'full' or 'decode', got {mode!r}")
-    if mode == "decode" and (caches is None or positions is None):
-        raise ValueError("mode='decode' needs caches and positions")
+            "mode='verify': speculative verify is ROADMAP Queue 1 item 10")
+    if mode not in ("full", "decode", "chunk"):
+        raise ValueError(f"mode must be 'full', 'decode' or 'chunk', got "
+                         f"{mode!r}")
+    if mode != "full" and (caches is None or positions is None):
+        raise ValueError(f"mode={mode!r} needs caches and positions")
     _check_supported(cfg)
     x = embed_apply(cfg, params["embed"], tokens)
     if cfg.embed_scale:
@@ -218,6 +226,21 @@ def prefill(cfg, params, tokens, caches, **kw):
     (or hidden states with ``return_hidden=True``)."""
     return forward(cfg, params, tokens=tokens, caches=caches, mode="full",
                    **kw)
+
+
+def prefill_chunk(cfg, params, tokens, positions, caches, **kw):
+    """One chunk of an incremental prefill (JAX's ``prefill_chunk``).
+    tokens: (B, C) the next C prompt tokens per row; positions: (B, C)
+    their absolute positions. The chunk attends over what ``caches``
+    hold plus itself and writes its K/V at those positions; an ``rglru``
+    block carries its ``{h, conv}`` state into the chunk (K5 runs once
+    per chunk with the carried state folded into its first step). Every
+    chunk but a prompt's last must be full of real tokens; the last may
+    carry a padded tail, which lands past the prompt as whole-prompt
+    padding does. Returns logits (or hidden states with
+    ``return_hidden=True``)."""
+    return forward(cfg, params, tokens=tokens, positions=positions,
+                   caches=caches, mode="chunk", **kw)
 
 
 def decode_step(cfg, params, tokens, positions, caches, **kw):

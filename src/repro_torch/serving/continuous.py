@@ -1,8 +1,7 @@
 """Multi-lane step-driven continuous-batching scheduler.
 
-Port of ``repro/serving/continuous.py`` without chunked prefill (ROADMAP
-Queue 1 item 7), the prefix cache (item 8) and speculative decoding
-(item 10): their entry points raise naming the item.
+Port of ``repro/serving/continuous.py`` without speculative decoding
+(ROADMAP Queue 1 item 10): its entry points raise naming the item.
 
 Each pad bucket gets its own **lane**: a ``CachePool``-backed slot batch
 with per-slot decode state and a per-lane pending queue
@@ -15,6 +14,19 @@ budget), retires rows whose client cancelled, and admits the best pending
 requests per lane (priority order, FIFO within a level) by
 prefill-into-slot. ``EngineConfig.multi_lane=False`` keeps the
 single-set admission gate (one bucket serves until it drains).
+
+**Chunked prefill** (``EngineConfig.prefill_chunk``): a join whose prompt
+is longer than one chunk reserves a lane slot and a slot of the lane's
+staging pool, and its prompt advances one chunk per scheduler turn
+(``models.prefill_chunk``, one captured program over the lane's fills),
+interleaved with decode segments; when it completes, the staging slot is
+copied into the lane slot at once. The staging slot absorbs the chunks
+because inactive rows re-write their frozen KV position every full-width
+segment, which would corrupt a partly filled live slot. **The prefix
+cache** (``prefix_cache``): a join whose prompt extends a stored prefix
+(``kvcache.PrefixStore``) by at most one chunk runs that one chunk over a
+copy of the stored slot; a longer one starts its fill at the prefix;
+every completed prompt offers its KV at chunk boundaries to the store.
 
 Decode segments are **occupancy-adaptive**: before each segment the
 scheduler picks the smallest width tier (``scheduler.width_tiers``) that
@@ -37,6 +49,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+import torch
+
+from repro_torch.serving import kvcache
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      FINISH_LENGTH, GenerationResult,
                                      RequestTiming)
@@ -51,26 +66,38 @@ class _Row:                          # membership must not compare the
     toks: List[int] = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass(eq=False)
 class _Fill:
-    """A join whose prompt prefills chunk by chunk: chunked prefill is
-    ROADMAP Queue 1 item 7."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "chunked prefill (_Fill) is ROADMAP Queue 1 item 7")
+    """A join whose prompt is prefilling chunk by chunk: ``slot`` is its
+    reserved lane slot (written once, when the prompt completes), ``stg``
+    its staging-pool slot (written every chunk), ``filled`` the prompt
+    tokens staged so far. Sampling/stop values are frozen at claim time
+    so chunk batches regroup freely across scheduler turns."""
+    req: "object"
+    slot: int
+    stg: int
+    filled: int = 0
+    matched: int = 0       # prompt tokens reused from the prefix store
+    temp: float = 0.0
+    topk: int = 0
+    seed: int = 0
+    eos: int = -1
+    budget: int = 0
 
 
 class _Lane:
     """One pad bucket's in-flight set: pool slots + per-slot decode state.
 
-    State arrays are indexed by pool slot; free slots ride along inactive
-    (``active=False``) in every full-width segment, re-writing their frozen
-    KV position, and reset-on-assign wipes a slot when it is re-acquired.
+    State arrays are indexed by pool slot; free and prefilling slots ride
+    along inactive (``active=False``) in every full-width segment,
+    re-writing their frozen KV position, and reset-on-assign wipes a slot
+    when it is re-acquired.
     """
 
     def __init__(self, eng, bucket: int):
         self._eng = eng                  # guarded-by: init
         self.bucket = bucket             # guarded-by: init
+        self.staging: Optional[CachePool] = None   # guarded-by: worker
         n = eng.ec.max_batch
         self.last_tok = np.zeros(n, np.int32)   # guarded-by: worker — last sampled
         self.pos = np.zeros(n, np.int32)        # guarded-by: worker — abs position
@@ -81,7 +108,7 @@ class _Lane:
         self.topk = np.zeros(n, np.int32)       # guarded-by: worker
         self.seed = np.zeros(n, np.int32)       # guarded-by: worker
         self.rows: Dict[int, _Row] = {}         # guarded-by: worker — slot -> _Row
-        self.fills: List[_Fill] = []            # guarded-by: worker — chunked prefills (item 7)
+        self.fills: List[_Fill] = []            # guarded-by: worker — chunked prefills
 
     @property
     def busy(self) -> bool:  # holds: worker
@@ -92,6 +119,18 @@ class _Lane:
         """The bucket's slot pool, through the engine's pool cache, so
         buckets the workload never touches allocate nothing."""
         return self._eng._get_pool(self.bucket)
+
+    def get_staging(self, eng) -> CachePool:  # holds: worker
+        """The lane's staging pool for chunked prefills: ``max_batch``
+        slots as long as the lane's (a completed fill is a whole-slot
+        copy), int8 KV when the engine's is; created on first use or by
+        ``warmup``."""
+        if self.staging is None:
+            self.staging = CachePool(
+                eng.cfg, eng.ec.max_batch, eng._slot_len(self.bucket),
+                dtype=torch.float32, kv_quant=eng.ec.kv_quant,
+                device=eng.device)
+        return self.staging
 
 
 class ContinuousScheduler:
@@ -149,8 +188,9 @@ class ContinuousScheduler:
         return busy[self._rr]
 
     def _step(self, lane: _Lane) -> None:  # holds: worker
-        """One scheduler turn for a lane: one decode segment for its
-        in-flight rows."""
+        """One scheduler turn for a lane: advance its chunked prefills by
+        one chunk, then run one decode segment for its in-flight rows —
+        the interleave that bounds how long a join can stall decode."""
         if lane.fills:
             self._fill_chunk(lane)
         if lane.rows:
@@ -191,9 +231,40 @@ class ContinuousScheduler:
                     eng._stats["joins_mid_flight"] += len(claimed)
                     eng._lane_stat(bucket)["joins"] += len(claimed)
             any_busy = True
-            # no prefix store and no chunked prefill (items 8 and 7): every
-            # join prefills its whole prompt
-            self._prefill(claimed, lane)
+            chunk = eng.ec.prefill_chunk
+            store = eng._prefix_store(bucket)
+            whole, hits, fills, fill_entries = [], [], [], []
+            for r in claimed:
+                entry = store.lookup(r.tokens) if store is not None else None
+                if entry is not None:
+                    with eng._samples_lock:
+                        stat = eng._lane_stat(bucket)
+                        stat["prefix_hits"] += 1
+                        stat["prefix_hit_tokens"] += entry.n_tokens
+                    if len(r.tokens) - entry.n_tokens <= chunk:
+                        # the unseen suffix fits one chunk: one chunk call
+                        # over a copy of the stored slot at admission
+                        hits.append((r, entry))
+                    else:
+                        # partial match: the fill starts ``matched``
+                        # tokens in instead of at zero
+                        fills.append(r)
+                        fill_entries.append(entry)
+                    continue
+                if store is not None:
+                    with eng._samples_lock:
+                        eng._lane_stat(bucket)["prefix_misses"] += 1
+                if chunk is None or len(r.tokens) <= chunk:
+                    whole.append(r)
+                else:
+                    fills.append(r)
+                    fill_entries.append(None)
+            if whole:
+                self._prefill(whole, lane)
+            if hits:
+                self._prefill_hits(hits, lane)
+            if fills:
+                self._begin_fills(fills, lane, entries=fill_entries)
 
     # ----------------------------------------------- whole-prompt prefill
     def _prefill(self, claimed, lane: _Lane) -> None:  # holds: worker
@@ -206,14 +277,19 @@ class ContinuousScheduler:
         try:
             self._prefill_inner(claimed, lane)
         except Exception as e:
-            live = {id(row.req) for row in lane.rows.values()}
-            ids = {id(r) for r in claimed}
-            for slot, rid in enumerate(lane.pool.request_of):
-                if rid in ids and slot not in lane.rows:
-                    lane.pool.release(slot)
-            for r in claimed:
-                if id(r) not in live and not r.future.done():
-                    r.future.set_exception(e)
+            self._fail_joins(lane, claimed, e)
+
+    def _fail_joins(self, lane: _Lane, reqs, exc) -> None:  # holds: worker
+        """A join failed: release the slots of ``reqs`` that never became
+        rows and fail their futures."""
+        live = {id(row.req) for row in lane.rows.values()}
+        ids = {id(r) for r in reqs}
+        for slot, rid in enumerate(lane.pool.request_of):
+            if rid in ids and slot not in lane.rows:
+                lane.pool.release(slot)
+        for r in reqs:
+            if id(r) not in live and not r.future.done():
+                r.future.set_exception(exc)
 
     def _prefill_inner(self, claimed, lane: _Lane) -> None:  # holds: worker
         eng = self.eng
@@ -237,6 +313,9 @@ class ContinuousScheduler:
             eng._stats["prefill_batches"] += 1
         t1 = time.perf_counter()
         for i, (r, s) in enumerate(zip(claimed, slots)):
+            # a whole-prompt join can seed the store too (a prompt of
+            # exactly one chunk is a storable boundary)
+            self._insert_prefix(lane, r, 0, s)
             r.t_prefill_done = t1
             self._start_row(lane, r, s, int(first[i]), int(lens[i]),
                             budget=int(budget[i]), eos=int(eos[i]),
@@ -263,22 +342,213 @@ class ContinuousScheduler:
         else:
             lane.active[slot] = True
 
-    # ------------------------------------------- not ported: items 7, 8, 10
+    # ----------------------------------------------- prefix-cache fast path
     def _prefill_hits(self, claimed, lane: _Lane) -> None:  # holds: worker
-        raise NotImplementedError(
-            "prefix-cache hits are ROADMAP Queue 1 item 8")
+        """Admit requests whose prompt extends a stored prefix by at most
+        one chunk: one chunk program reads each stored slot, runs the
+        unseen suffix at the prefix's absolute offset and writes the
+        result into a lane slot, so the whole prompt never runs.
+        ``claimed`` is a list of (request, PrefixEntry) pairs; the entry
+        refs are released once the program has been issued. Failure
+        handling mirrors _prefill."""
+        try:
+            self._prefill_hits_inner(claimed, lane)
+        except Exception as e:
+            self._fail_joins(lane, [r for r, _ in claimed], e)
+
+    def _prefill_hits_inner(self, claimed, lane: _Lane) -> None:  # holds: worker
+        eng = self.eng
+        store = eng._prefix_store(lane.bucket)
+        C = eng.ec.prefill_chunk
+        t0 = time.perf_counter()
+        B, pool = len(claimed), lane.pool
+        reqs = [r for r, _ in claimed]
+        # claim without reset: the program overwrites the whole slot
+        slots = pool.claim([id(r) for r in reqs])
+        toks = np.zeros((B, C), np.int64)
+        start = np.zeros(B, np.int32)
+        nvalid = np.zeros(B, np.int32)
+        for i, (r, e) in enumerate(claimed):
+            r.t_start = t0
+            suffix = np.asarray(r.tokens)[e.n_tokens:]
+            toks[i, :len(suffix)] = suffix
+            start[i], nvalid[i] = e.n_tokens, len(suffix)
+        temp, topk, seed, eos, budget, any_sample = \
+            eng._sampling_arrays(reqs)
+        sargs = (temp, topk, seed) if any_sample else (None, None, None)
+        try:
+            first = eng._chunk_call("cont_hit", lane.bucket, store.pool,
+                                    pool, toks, start, nvalid,
+                                    [e.slot for _, e in claimed], slots,
+                                    *sargs)
+        finally:
+            for _, e in claimed:
+                store.release(e)
+        for s, r in zip(slots, reqs):
+            pool.lengths[s] = len(r.tokens) + 1
+        with eng._samples_lock:
+            eng._stats["prefill_batches"] += 1
+        t1 = time.perf_counter()
+        for i, ((r, e), s) in enumerate(zip(claimed, slots)):
+            # a prompt extending >= 1 chunk past its matched prefix is a
+            # new, deeper boundary worth storing
+            self._insert_prefix(lane, r, e.n_tokens, s)
+            r.t_prefill_done = t1
+            self._start_row(lane, r, s, int(first[i]), len(r.tokens),
+                            budget=int(budget[i]), eos=int(eos[i]),
+                            temp=float(temp[i]), topk=int(topk[i]),
+                            seed=int(seed[i]), now=t1)
 
     def _insert_prefix(self, lane: _Lane, r, matched: int,  # holds: worker
                        slot: int) -> None:
-        raise NotImplementedError(
-            "prefix-cache inserts are ROADMAP Queue 1 item 8")
+        """Insert-on-complete: offer the finished prompt's KV (sitting in
+        its lane slot) to the bucket's prefix store. ``matched`` is what
+        this request itself reused — depths at or below it are already
+        stored. No-op when the prefix cache is off for the bucket."""
+        store = self.eng._prefix_store(lane.bucket)
+        if store is None:
+            return
+        ins, evc = store.insert(r.tokens, matched, lane.pool, slot)
+        if ins or evc:
+            with self.eng._samples_lock:
+                stat = self.eng._lane_stat(lane.bucket)
+                stat["prefix_inserts"] += ins
+                stat["prefix_evictions"] += evc
+                stat["prefix_bytes"] = store.bytes_used
 
+    # --------------------------------------------------- chunked prefill
     def _begin_fills(self, claimed, lane: _Lane, entries=None) -> None:  # holds: worker
-        raise NotImplementedError("chunked prefill is ROADMAP Queue 1 item 7")
+        """Reserve a lane slot and a staging slot per long-prompt join;
+        the prompt then advances one chunk per scheduler turn in
+        _fill_chunk. ``entries[i]`` (when given) is request i's matched
+        ``PrefixEntry``: its stored KV is copied into the staging slot and
+        the fill starts ``matched`` tokens in. Entry refs are released
+        here whatever happens. Failure handling mirrors _prefill: the
+        claimed futures are RUNNING, so fail them here and release both
+        slots."""
+        eng = self.eng
+        store = eng._prefix_store(lane.bucket)
+        if entries is None:
+            entries = [None] * len(claimed)
+        try:
+            staging = lane.get_staging(eng)
+            temp, topk, seed, eos, budget, _ = eng._sampling_arrays(claimed)
+            slots = lane.pool.assign_many([id(r) for r in claimed])
+            stg = staging.assign_many([id(r) for r in claimed])
+            hit = [(ent, stg[i]) for i, ent in enumerate(entries)
+                   if ent is not None]
+            if hit:
+                store.load_many([ent for ent, _ in hit], staging,
+                                [s for _, s in hit])
+            t0 = time.perf_counter()
+            for i, r in enumerate(claimed):
+                r.t_start = t0
+                matched = entries[i].n_tokens if entries[i] else 0
+                lane.fills.append(_Fill(
+                    req=r, slot=slots[i], stg=stg[i],
+                    filled=matched, matched=matched,
+                    temp=float(temp[i]), topk=int(topk[i]),
+                    seed=int(seed[i]), eos=int(eos[i]),
+                    budget=int(budget[i])))
+        except Exception as e:
+            ids = {id(r) for r in claimed}
+            self._release_fills(lane, [f for f in lane.fills
+                                       if id(f.req) in ids])
+            for pool in (lane.pool, lane.staging):
+                if pool is None:
+                    continue
+                for slot, rid in enumerate(pool.request_of):
+                    if rid in ids:
+                        pool.release(slot)
+            for r in claimed:
+                if not r.future.done():
+                    r.future.set_exception(e)
+        finally:
+            for ent in entries:
+                if ent is not None:
+                    store.release(ent)
+
+    def _release_fills(self, lane: _Lane, fills) -> None:  # holds: worker
+        for f in fills:
+            if f in lane.fills:
+                lane.fills.remove(f)
+            lane.pool.release(f.slot)
+            if lane.staging is not None:
+                lane.staging.release(f.stg)
 
     def _fill_chunk(self, lane: _Lane) -> None:  # holds: worker
-        raise NotImplementedError("chunked prefill is ROADMAP Queue 1 item 7")
+        """Advance every in-flight fill of this lane by one prompt chunk
+        (one chunk program over the fill batch). Fills whose prompt
+        completes are copied staging -> lane slot and join the decode set
+        with their first token."""
+        now = time.perf_counter()
+        for f in list(lane.fills):       # cancelled mid-prefill: retire
+            h = f.req.handle
+            if h is not None and h.cancel_requested:
+                self._release_fills(lane, [f])
+                f.req.t_prefill_done = now
+                self._resolve(f.req, [], FINISH_CANCELLED, now)
+        if not lane.fills:
+            return
+        try:
+            self._fill_chunk_inner(lane)
+        except Exception as e:
+            fills = list(lane.fills)
+            self._release_fills(lane, fills)
+            for f in fills:
+                if not f.req.future.done():
+                    f.req.future.set_exception(e)
 
+    def _fill_chunk_inner(self, lane: _Lane) -> None:  # holds: worker
+        eng = self.eng
+        C = eng.ec.prefill_chunk
+        fills = list(lane.fills)
+        B = len(fills)
+        staging = lane.get_staging(eng)
+        toks = np.zeros((B, C), np.int64)
+        start = np.zeros(B, np.int32)
+        nvalid = np.zeros(B, np.int32)
+        temp = np.zeros(B, np.float32)
+        topk = np.zeros(B, np.int32)
+        seed = np.zeros(B, np.int32)
+        for i, f in enumerate(fills):
+            chunk = np.asarray(f.req.tokens)[f.filled:f.filled + C]
+            toks[i, :len(chunk)] = chunk
+            start[i], nvalid[i] = f.filled, len(chunk)
+            temp[i], topk[i], seed[i] = f.temp, f.topk, f.seed
+        sargs = ((temp, topk, seed) if (temp > 0).any()
+                 else (None, None, None))
+        stg_slots = [f.stg for f in fills]
+        first = eng._chunk_call("cont_chunk", lane.bucket, staging, staging,
+                                toks, start, nvalid, stg_slots, stg_slots,
+                                *sargs)
+        for i, f in enumerate(fills):
+            f.filled += int(nvalid[i])
+            staging.lengths[f.stg] = f.filled
+        with eng._samples_lock:
+            eng._stats["prefill_chunks"] += B
+            eng._lane_stat(lane.bucket)["prefill_chunks"] += B
+        done = [(i, f) for i, f in enumerate(fills)
+                if f.filled >= len(f.req.tokens)]
+        if not done:
+            return
+        t1 = time.perf_counter()
+        # one copy installs every completed prompt into its lane slot
+        pool = lane.pool
+        kvcache._load_slots(pool.caches, staging.caches,
+                            pool._idx([f.slot for _, f in done]),
+                            staging._idx([f.stg for _, f in done]))
+        for i, f in done:
+            pool.lengths[f.slot] = f.filled + 1
+            lane.fills.remove(f)
+            staging.release(f.stg)
+            self._insert_prefix(lane, f.req, f.matched, f.slot)
+            f.req.t_prefill_done = t1
+            self._start_row(lane, f.req, f.slot, int(first[i]), f.filled,
+                            budget=f.budget, eos=f.eos, temp=f.temp,
+                            topk=f.topk, seed=f.seed, now=t1)
+
+    # ------------------------------------------------ not ported: item 10
     def _draft_prefill(self, lane: _Lane, reqs, slots) -> None:  # holds: worker
         raise NotImplementedError(
             "speculative decoding is ROADMAP Queue 1 item 10")
@@ -409,6 +679,11 @@ class ContinuousScheduler:
                 lane.active[row.slot] = False
                 if not row.req.future.done():
                     row.req.future.set_exception(exc)
+            fills = list(lane.fills)
+            self._release_fills(lane, fills)
+            for f in fills:
+                if not f.req.future.done():
+                    f.req.future.set_exception(exc)
 
     def _shutdown(self) -> None:  # holds: worker
         err = RuntimeError("engine is closed")

@@ -38,8 +38,13 @@ the tree once at init and every projection runs K3; with
 scale planes; both for the plain ``("attn",)`` stack only. The decoder
 serves the RecurrentGemma hybrid too: its caches hold local-attention
 rings of ``min(bucket + max_new_tokens, window)`` slots and the RG-LRU
-blocks' recurrent states. Chunked prefill, the prefix cache and
-speculative decoding are not ported yet and raise.
+blocks' recurrent states. ``prefill_chunk`` prefills a prompt longer
+than one chunk chunk by chunk into a per-lane staging pool, one chunk per
+scheduler turn between decode segments, one captured program per (bucket,
+rows, chunk, sampled); ``prefix_cache`` keeps finished prompts' KV at
+chunk boundaries in a per-bucket ``PrefixStore`` and serves a hit by one
+chunk over the stored slot. Speculative decoding is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import (decode_segment, forward, make_caches,
-                                sample_logits)
+                                prefill_chunk, sample_logits)
 from repro_torch.models.layers import head_weight, lm_head_apply
 from repro_torch.quant import (params_bytes, quantize_params,
                                validate_kv_quant)
@@ -80,12 +85,14 @@ class RequestTooLong(ValueError):
 class EngineConfig:
     """The JAX engine's knobs, with the same defaults. ``continuous``
     (with ``use_scan_decode`` and ``use_cache_pool``) selects the
-    continuous scheduler, as in JAX; ``decode_segment``, ``multi_lane``
-    and ``segment_width`` shape it. ``prefill_chunk``, ``prefix_cache``
-    and ``spec_decode`` on the continuous path are ROADMAP Queue 1 items
-    7, 8 and 10 and raise; off it they take the JAX engine's errors.
-    ``weight_quant`` (None or "int8") serves both modes; ``kv_quant``
-    (None or "int8") the decoder."""
+    continuous scheduler, as in JAX; ``decode_segment``, ``multi_lane``,
+    ``segment_width``, ``prefill_chunk`` (chunked prefill of prompts
+    longer than it) and ``prefix_cache`` (with ``prefix_cache_bytes``,
+    which needs ``prefill_chunk`` and a pure global-attention model)
+    shape it, with the JAX engine's configuration errors.
+    ``spec_decode`` is ROADMAP Queue 1 item 10 and raises on the
+    continuous path. ``weight_quant`` (None or "int8") serves both
+    modes; ``kv_quant`` (None or "int8") the decoder."""
     mode: str = "encoder"             # 'encoder' | 'decoder'
     max_batch: int = 32
     batch_window_ms: float = 2.0
@@ -175,9 +182,9 @@ def _continuous(ec: EngineConfig) -> bool:
             and ec.use_cache_pool)
 
 
-def _check_config(ec: EngineConfig) -> None:
-    """The JAX engine's configuration errors, then the features of the
-    continuous path that are not ported yet."""
+def _check_config(ec: EngineConfig, cfg) -> None:
+    """The JAX engine's configuration errors, then speculative decoding,
+    which is not ported yet."""
     if ec.mode not in ("encoder", "decoder"):
         raise ValueError(f"mode must be 'encoder' or 'decoder', got "
                          f"{ec.mode!r}")
@@ -193,28 +200,40 @@ def _check_config(ec: EngineConfig) -> None:
                          f"got {ec.segment_width!r}")
     cont = _continuous(ec)
     C = ec.prefill_chunk
+    if cont and C is not None:
+        if C < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {C}")
+        for b in ec.pad_buckets:
+            # the last chunk pads up to a multiple of C; those positions
+            # land in the slot's ring and must not wrap past its length,
+            # or they would overwrite the prompt's first K/V
+            if -(-b // C) * C > b + ec.max_new_tokens:
+                raise ValueError(
+                    f"prefill_chunk={C} rounds bucket {b} prompts up to "
+                    f"{-(-b // C) * C} cache positions, past the slot's "
+                    f"{b + ec.max_new_tokens}; pick a chunk dividing the "
+                    f"bucket or raise max_new_tokens")
     for name in ("prefix_cache", "spec_decode"):
         if getattr(ec, name) and not cont:
             raise ValueError(
                 f"{name} requires the continuous decoder path "
                 f"(mode='decoder', continuous/use_scan_decode/"
                 f"use_cache_pool all on)")
-    if ec.prefix_cache and C is None:
-        raise ValueError("prefix_cache requires prefill_chunk: chunk "
-                         "boundaries define the prefix granularity")
-    if ec.spec_decode and ec.spec_k < 1:
-        raise ValueError(f"spec_k must be >= 1, got {ec.spec_k}")
-    needs = []
-    if cont and C is not None:
-        needs.append("prefill_chunk (chunked prefill) is ROADMAP Queue 1 "
-                     "item 7")
     if ec.prefix_cache:
-        needs.append("prefix_cache is ROADMAP Queue 1 item 8")
+        if C is None:
+            raise ValueError("prefix_cache requires prefill_chunk: chunk "
+                             "boundaries define the prefix granularity")
+        if any(k != "attn" for k in cfg.pattern) or cfg.enc_layers:
+            raise ValueError(
+                f"prefix_cache requires a pure global-attention pattern: "
+                f"sliding-window rings and recurrent states cannot be "
+                f"replayed at an absolute KV offset "
+                f"(pattern={cfg.pattern!r})")
     if ec.spec_decode:
-        needs.append("spec_decode (speculative decoding) is ROADMAP Queue "
-                     "1 item 10")
-    if needs:
-        raise NotImplementedError("; ".join(needs))
+        if ec.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {ec.spec_k}")
+        raise NotImplementedError("spec_decode (speculative decoding) is "
+                                  "ROADMAP Queue 1 item 10")
 
 
 class ServingEngine:
@@ -229,7 +248,7 @@ class ServingEngine:
         ``weight_quant="int8"`` the tree is quantized on the device, once
         (``quantize_params``); otherwise the engine keeps the caller's
         leaves."""
-        _check_config(engine_cfg)
+        _check_config(engine_cfg, cfg)
         if ((engine_cfg.weight_quant or engine_cfg.kv_quant)
                 and tuple(cfg.pattern) != ("attn",)):
             raise NotImplementedError(
@@ -255,6 +274,7 @@ class ServingEngine:
         # read only its capture count
         self._graphs = GraphCache(self.device)    # guarded-by: threadsafe
         self._pools = {}                  # guarded-by: worker — bucket -> CachePool
+        self._prefix_stores = {}          # guarded-by: worker — bucket -> PrefixStore
         self.continuous_active = _continuous(engine_cfg)  # guarded-by: init
         # the width ladder compacted segments may run at; 'fixed'
         # degenerates to the max_batch-only ladder
@@ -446,9 +466,12 @@ class ServingEngine:
         drops them). The continuous decoder primes each bucket's
         prefill-into-slot per join size and its decode segment at full
         width and at each width tier the sizes map to, directly against
-        the bucket's pool and without request samples; it must run
-        before serving traffic. ``sampled=True`` also primes the
-        temperature > 0 variant of every continuous program.
+        the bucket's pool and without request samples; with
+        ``prefill_chunk`` also the chunk program per fill count (buckets
+        longer than the chunk), and with ``prefix_cache`` the hit program
+        per hit count. It must run before serving traffic.
+        ``sampled=True`` also primes the temperature > 0 variant of every
+        continuous program.
         ``metrics()["jit_compiles"]`` counts the programs built and
         ``window()`` diffs it."""
         buckets = tuple(buckets) if buckets else self.ec.pad_buckets
@@ -465,10 +488,13 @@ class ServingEngine:
 
     def _warmup_continuous(self, buckets, sizes, sampled=False) -> None:  # holds: worker
         """Prime the continuous scheduler's programs per bucket: the
-        prefill-into-slot per join size, the full-width segment, and one
+        prefill-into-slot per join size, the chunk program per fill count
+        (over the lane's staging pool) and the hit program per hit count
+        (over the prefix store), the full-width segment, and one
         compacted segment per occupancy in ``sizes`` whose tier is below
         ``max_batch``; with ``sampled`` each again with temperature > 0
-        arrays. The pools are created here too."""
+        arrays. The lane pools, staging pools and prefix stores are
+        created here too."""
         with self._samples_lock:
             served = bool(self.latencies)
         if (served or not self._q.empty()
@@ -483,8 +509,12 @@ class ServingEngine:
                             np.zeros(b, np.int32), np.zeros(b, np.int32)))
             return out
 
+        chunk = self.ec.prefill_chunk
         for bucket in buckets:
             pool = self._get_pool(bucket)
+            staging = (self._scheduler.lanes[bucket].get_staging(self)
+                       if chunk is not None and bucket > chunk else None)
+            store = self._prefix_store(bucket)
             for b in sizes:
                 for sargs in svariants(b):
                     slots = pool.claim([f"warm{bucket}.{i}"
@@ -492,6 +522,21 @@ class ServingEngine:
                     self._prefill_call(
                         bucket, np.zeros((b, bucket), np.int64),
                         np.full(b, min(4, bucket), np.int32), slots, *sargs)
+                    if chunk is not None:
+                        args = (np.zeros((b, chunk), np.int64),
+                                np.zeros(b, np.int32),
+                                np.full(b, chunk, np.int32))
+                        if store is not None:   # writes the claimed slots
+                            self._chunk_call("cont_hit", bucket, store.pool,
+                                             pool, *args, list(range(b)),
+                                             slots, *sargs)
+                        if staging is not None:
+                            stg = staging.claim([f"warmc{bucket}.{i}"
+                                                 for i in range(b)])
+                            self._chunk_call("cont_chunk", bucket, staging,
+                                             staging, *args, stg, stg,
+                                             *sargs)
+                            staging.release_many(stg)
                     pool.release_many(slots)
             for sargs in svariants(n):
                 self._segment_call(bucket, n, self._idle_rows(n), *sargs)
@@ -555,7 +600,7 @@ class ServingEngine:
         """One bidirectional forward over a padded batch, then the head.
         Every bucket position carries a valid position and ``mask``
         reaches only ``head_fn``, so real tokens attend to the pad tokens,
-        as in the JAX engine. Captured per (bucket, batch)."""
+        as in the JAX engine. Captured per (bucket, padded batch)."""
         def fn(tokens, mask):
             enc_params = self.params.get("encoder", self.params)
             hid = forward(self.cfg, enc_params, tokens=tokens, causal=False,
@@ -591,15 +636,20 @@ class ServingEngine:
                 seed[i] = sp.seed
         return temp, topk, seed, eos, budget, any_sample
 
-    def _first_token(self, hid, lens, temp, topk, seed):  # holds: worker
+    def _first_token(self, hid, lens, temp, topk, seed,  # holds: worker
+                     positions=None):
         """Each row's first token from the hidden state at its last real
-        position: only those rows go through the head, the same values
-        per row as JAX's full (B, bucket, vocab) logits."""
+        position ``lens - 1``: only those rows go through the head, the
+        same values per row as JAX's full (B, bucket, vocab) logits. The
+        sampling counter is ``positions`` (default ``lens``), the position
+        the token will occupy."""
         B = hid.shape[0]
         last = hid[torch.arange(B, device=hid.device), lens - 1][:, None]
         logits = lm_head_apply(self.cfg, None, last, w=self._head_w)[:, 0]
         return sample_logits(logits, temperature=temp, top_k=topk,
-                             seed=seed, positions=lens)
+                             seed=seed,
+                             positions=lens if positions is None
+                             else positions)
 
     def _decode_batch(self, toks, lens, caches, temp, topk, seed):  # holds: worker
         """Prefill -> each row's first token -> ``decode_segment`` over
@@ -656,16 +706,20 @@ class ServingEngine:
                     self._lane_stat(bucket)["kv_bytes"] = pool.nbytes
         return pool
 
-    def _acquire_caches(self, B: int, bucket: int):  # holds: worker
-        """Batch-sized decode caches for the eager path: pooled slots
-        (reset-on-assign) or a fresh make_caches tree."""
+    def _acquire_caches(self, B: int, bucket: int, rows: int):  # holds: worker
+        """Decode caches of ``rows`` >= B rows for the eager path: B pooled
+        slots reset on assign and gathered, the rows past B copies of the
+        first slot, or a fresh make_caches tree of ``rows`` rows."""
         if not self.ec.use_cache_pool:
-            return make_caches(self.cfg, B, self._slot_len(bucket),
+            return make_caches(self.cfg, rows, self._slot_len(bucket),
                                dtype=torch.float32,
                                kv_quant=self.ec.kv_quant,
                                device=self.device), None
         pool = self._get_pool(bucket)
-        slots, view = pool.acquire([f"b{bucket}.{i}" for i in range(B)])
+        slots = pool.claim([f"b{bucket}.{i}" for i in range(B)])
+        _, view = kvcache._reset_and_view(
+            pool.caches, pool._template,
+            pool._idx(slots + [slots[0]] * (rows - B)))
         return view, (pool, slots)
 
     @staticmethod
@@ -703,14 +757,18 @@ class ServingEngine:
                     if pool is not None:
                         pool.release_many(slots)
             else:
+                # padded as the captured prefills are (PREFILL_MIN_M); the
+                # padding rows decode on their own copies of the first
+                # row's cache, which nothing writes back
                 dev = self.device
-                caches, handle = self._acquire_caches(B, bucket)
+                n = self._prefill_rows(B, bucket)
+                caches, handle = self._acquire_caches(B, bucket, rows=n)
                 try:
                     gen = self._decode_batch(
-                        torch.from_numpy(toks).to(dev),
-                        torch.from_numpy(lens).to(dev), caches,
                         *(None if a is None else torch.from_numpy(a).to(dev)
-                          for a in sargs)).cpu().numpy()
+                          for a in _pad_rows(n, toks, lens)), caches,
+                        *(None if a is None else torch.from_numpy(a).to(dev)
+                          for a in _pad_rows(n, *sargs)))[:B].cpu().numpy()
                 finally:
                     self._release_caches(handle)
         emits, eos_hit = _trim_host(gen, eos, budget)
@@ -718,10 +776,10 @@ class ServingEngine:
 
     # ----------------------------------------------- continuous programs
     @staticmethod
-    def _prefill_rows(n: int, bucket: int) -> int:
-        """Rows a captured prefill of ``n`` prompts runs (see
-        ``PREFILL_MIN_M``)."""
-        return max(n, -(-PREFILL_MIN_M // bucket))
+    def _prefill_rows(n: int, width: int) -> int:
+        """Rows a program of ``n`` prompts of ``width`` tokens each (a
+        bucket, or a chunk) runs (see ``PREFILL_MIN_M``)."""
+        return max(n, -(-PREFILL_MIN_M // width))
 
     def _prefill_fn(self, bucket: int, n: int):  # holds: worker
         """Continuous prefill-into-slot (JAX's ``_prefill_fn`` with the
@@ -753,6 +811,72 @@ class ServingEngine:
                 *_pad_rows(self._prefill_rows(n, bucket), toks, lens,
                            np.asarray(slots, np.int64), temp, topk, seed))
             return first.cpu().numpy()
+
+    def _chunk_fn(self, src: CachePool, dst: CachePool):  # holds: worker
+        """One prefill chunk (JAX's ``_chunk_fn`` with the view and the
+        write-back around it): gather slots ``src_idx`` of ``src``, run
+        ``prefill_chunk`` at positions ``start + 0..C-1`` over them, take
+        each row's candidate token at ``nvalid - 1`` (sampling counter
+        ``start + nvalid``), and scatter the rows into slots ``dst_idx``
+        of ``dst``. A fill's chunk reads and writes its staging slot; a
+        prefix hit's reads the store's slot and writes the lane's. The
+        rows past the real ones are padding (``PREFILL_MIN_M``): their
+        indices name the first row's slots and ``rows`` makes them take
+        the first row, so the padding writes nothing of its own. Captured
+        per (bucket, rows, chunk, sampled)."""
+        def fn(toks, start, nvalid, src_idx, dst_idx, rows, temp, topk,
+               seed):
+            view = kvcache._take_slots(src.caches, src_idx)
+            positions = start[:, None] + torch.arange(
+                toks.shape[1], dtype=start.dtype, device=start.device)
+            hid = prefill_chunk(self.cfg, self.params, toks, positions,
+                                view, return_hidden=True)
+            tok = self._first_token(hid, nvalid, temp, topk, seed,
+                                    positions=start + nvalid)
+            kvcache._scatter_prefix(dst.caches, view, dst_idx, rows)
+            return tok
+        return fn
+
+    def _chunk_call(self, kind, bucket, src, dst, toks, start, nvalid,  # holds: worker
+                    src_slots, dst_slots, temp=None, topk=None,
+                    seed=None) -> np.ndarray:
+        """Run one chunk over ``len(dst_slots)`` rows: ``kind`` is
+        "cont_chunk" (fills, staging to staging) or "cont_hit" (hits, the
+        prefix store to the lane pool). Returns each row's candidate token
+        (host)."""
+        n, C = len(dst_slots), toks.shape[1]
+        rows = self._prefill_rows(n, C)
+        pad = rows - n
+        with torch.inference_mode():
+            tok = self._graphs.run(
+                (kind, bucket, rows, C, temp is not None),
+                self._chunk_fn(src, dst),
+                *_pad_rows(rows, toks, start, nvalid),
+                np.asarray(list(src_slots) + [src_slots[0]] * pad, np.int64),
+                np.asarray(list(dst_slots) + [dst_slots[0]] * pad, np.int64),
+                np.asarray(list(range(n)) + [0] * pad, np.int64),
+                *_pad_rows(rows, temp, topk, seed))
+            return tok[:n].cpu().numpy()
+
+    def _prefix_store(self, bucket: int):  # holds: worker
+        """The bucket's prefix store, or None when the prefix cache is off
+        or the bucket cannot hold a chunk-aligned prefix shorter than a
+        prompt (bucket <= chunk). Store slots have the lane pool's
+        length, so a load is a whole-slot copy."""
+        if not self.ec.prefix_cache:
+            return None
+        C = self.ec.prefill_chunk
+        if bucket <= C:
+            return None
+        store = self._prefix_stores.get(bucket)
+        if store is None:
+            store = kvcache.PrefixStore(
+                self.cfg, self.ec.max_batch, self._slot_len(bucket), C,
+                capacity_bytes=self.ec.prefix_cache_bytes,
+                dtype=torch.float32, kv_quant=self.ec.kv_quant,
+                device=self.device)
+            self._prefix_stores[bucket] = store
+        return store
 
     def _segment_fn(self, bucket: int):  # holds: worker
         """One decode segment of ``decode_segment`` steps (JAX's
@@ -849,10 +973,13 @@ class ServingEngine:
                     tokens=row, finish_reason=reason, timing=timings[i],
                     request_id=r.handle.request.request_id))
             return
+        # padded as the captured prefills are (PREFILL_MIN_M), so a row's
+        # bits do not follow its batch
+        n = self._prefill_rows(B, bucket)
         with torch.inference_mode():
-            out = self._graphs.run(("enc", bucket, B), self._encoder_fn(),
-                                   toks, mask)
-            out = _tree_map(lambda t: t.cpu(), out)   # waits for the device
+            out = self._graphs.run(("enc", bucket, n), self._encoder_fn(),
+                                   *_pad_rows(n, toks, mask))
+            out = _tree_map(lambda t: t[:B].cpu(), out)  # waits for the device
         # record samples BEFORE resolving futures: a client whose
         # .result() returns must find its sample in metrics()/window()
         self._record_batch(reqs)
@@ -892,8 +1019,8 @@ class ServingEngine:
 
     # ------------------------------------------------------------ metrics
     def _lane_stat(self, bucket: int) -> dict:  # holds: _samples_lock
-        """Per-lane counters, with JAX's keys (the prefix-cache and
-        speculative ones stay 0 until items 8 and 10)."""
+        """Per-lane counters, with JAX's keys (the speculative ones stay
+        0 until item 10)."""
         stat = self.lane_stats.get(bucket)
         if stat is None:
             stat = self.lane_stats[bucket] = {

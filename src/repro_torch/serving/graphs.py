@@ -23,6 +23,11 @@ addresses seen at capture. Its results are the graph's static outputs,
 overwritten by the next replay of the same key, so the caller copies
 them out first.
 
+Python's cyclic garbage collector is paused while a graph is captured
+(``collector_paused``): a collection may destroy the graphs of an engine
+that is no longer referenced (an engine and its scheduler form a cycle),
+and destroying a graph while a stream captures invalidates the capture.
+
 On the CPU (the tests, ``device="cpu"``) ``fn`` runs eagerly on the
 given arguments: the plain path, taken because the caller asked for the
 CPU. The key is recorded all the same, so ``captures`` counts the
@@ -36,6 +41,9 @@ counters at capture (nothing ran) and added again at every replay.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 from typing import Callable, Dict, Hashable, Optional
 
 import torch
@@ -52,6 +60,29 @@ KERNELS = (flash_attention, decode_attention, int8_matmul, cache_matmul,
 
 def _launches():
     return [k.launches for k in KERNELS]
+
+
+_collector = {"holds": 0, "was_enabled": False}    # guarded-by: _collector_lock
+_collector_lock = threading.Lock()                 # guarded-by: threadsafe
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Keep the cyclic garbage collector off inside the block, in every
+    thread; nested or concurrent holders share one pause, and the
+    collector's state before the first is restored after the last."""
+    with _collector_lock:
+        if _collector["holds"] == 0:
+            _collector["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _collector["holds"] += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector["holds"] -= 1
+            if _collector["holds"] == 0 and _collector["was_enabled"]:
+                gc.enable()
 
 
 def _to_static(a, device):
@@ -132,8 +163,8 @@ class GraphCache:
         before = _launches()
         # thread_local: client threads may use the card while the worker
         # captures
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
+        with collector_paused(), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
             outputs = fn(*inputs)
         launches = [a - b for a, b in zip(_launches(), before)]
         for k, n in zip(KERNELS, launches):

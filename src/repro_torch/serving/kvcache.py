@@ -1,7 +1,8 @@
-"""KV-cache pool with request-slot management for continuous batching.
+"""KV-cache pool with request-slot management for continuous batching,
+and the prefix store.
 
-Port of ``repro/serving/kvcache.py`` without the prefix store (ROADMAP
-Queue 1 item 8) and speculative decoding's rollback (item 10). The cache
+Port of ``repro/serving/kvcache.py`` without speculative decoding's
+rollback (ROADMAP Queue 1 item 10). The cache
 tree is ``models.make_caches``' (per-pattern trees stacked over periods,
 slots on axis 1 of every leaf); the pool adds a fixed batch of slots,
 per-slot request ids and lengths, and reset-on-assign, so a finished
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -237,3 +239,272 @@ class CachePool:
     @property
     def free_slots(self) -> int:
         return self.request_of.count(None)
+
+
+# ---------------------------------------------------------- prefix store
+#
+# Shared-prompt KV reuse: prompts are hashed at ``prefill_chunk``-token
+# granularity into a radix trie; a joining request that shares a cached
+# prefix copies the stored KV into its slot and prefills only the unseen
+# suffix. Entries are refcounted while a load is in flight and evicted
+# LRU-by-bytes against a capacity budget.
+
+def _load_slots(dst, src, dst_idx, src_idx):
+    """Copy slots ``src_idx`` of pool ``src`` into slots ``dst_idx`` of
+    pool ``dst``, in place: one gather and one scatter per leaf."""
+    for b, blk in dst.items():
+        for k, x in blk.items():
+            x.index_copy_(1, dst_idx, src[b][k].index_select(1, src_idx))
+    return dst
+
+
+def _store_prefix(dst, src, dst_idx, src_idx, n_tokens: int):
+    """``_load_slots`` truncating the attention caches to their first
+    ``n_tokens`` positions: ``pos`` entries >= n_tokens become the -1
+    empty sentinel and ``len`` is clamped, so a stored prefix never
+    exposes K/V its donor wrote past the prefix boundary (a whole-prompt
+    prefill stamps valid positions on every padded bucket position).
+    Only sound for pure global-attention caches ({k, v[, scales], pos,
+    len} per block); the engine allows the prefix cache on those
+    only."""
+    for b, blk in dst.items():
+        for k, x in blk.items():
+            taken = src[b][k].index_select(1, src_idx)
+            if k == "pos":
+                taken = torch.where(taken < n_tokens, taken, -1)
+            elif k == "len":
+                taken = torch.clamp(taken, max=n_tokens)
+            x.index_copy_(1, dst_idx, taken)
+    return dst
+
+
+class PrefixEntry:
+    """One stored prefix: ``n_tokens`` of KV in slot ``slot`` of the
+    store's pool. ``refs`` guards in-flight loads against eviction;
+    ``tick`` is the LRU stamp."""
+    __slots__ = ("slot", "n_tokens", "nbytes", "refs", "tick", "node")
+
+    def __init__(self, slot, n_tokens, nbytes, node):
+        self.slot = slot
+        self.n_tokens = n_tokens
+        self.nbytes = nbytes
+        self.refs = 0
+        self.tick = 0
+        self.node = node
+
+
+class _TrieNode:
+    __slots__ = ("key", "parent", "children", "entry")
+
+    def __init__(self, key=None, parent=None):
+        self.key = key          # chunk-token bytes (edge label from parent)
+        self.parent = parent
+        self.children = {}      # chunk bytes -> _TrieNode
+        self.entry = None       # PrefixEntry stored at this depth, if any
+
+
+class PrefixTrie:
+    """Host-side bookkeeping for stored prefixes: a radix trie over
+    ``chunk``-token chunks (node depth d = prompt prefix of d*chunk
+    tokens). Pure bookkeeping — device slots live in ``PrefixStore``.
+    Owned by the scheduler worker thread; not thread-safe. A copy of
+    JAX's ``PrefixTrie``."""
+
+    def __init__(self, chunk: int, capacity_bytes: int):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if capacity_bytes < 0:
+            raise ValueError("capacity_bytes must be >= 0")
+        self.chunk = chunk
+        self.capacity = capacity_bytes
+        self.root = _TrieNode()
+        self.entries: List[PrefixEntry] = []
+        self.bytes = 0
+        self._tick = 0
+
+    def _keys(self, tokens, n_chunks: int):
+        toks = np.asarray(tokens, np.int32)
+        C = self.chunk
+        for i in range(n_chunks):
+            yield toks[i * C:(i + 1) * C].tobytes()
+
+    # ------------------------------------------------------------ lookup
+    def lookup(self, tokens) -> Optional[PrefixEntry]:
+        """Deepest stored entry strictly shorter than the prompt (a full
+        match would leave no suffix token to produce the first logits
+        from). Acquires a reference — the caller must ``release`` it once
+        the KV copy has landed."""
+        cap = max(0, (len(tokens) - 1) // self.chunk)
+        node, best = self.root, None
+        for key in self._keys(tokens, cap):
+            node = node.children.get(key)
+            if node is None:
+                break
+            if node.entry is not None:
+                best = node.entry
+        if best is not None:
+            best.refs += 1
+            self._tick += 1
+            best.tick = self._tick
+        return best
+
+    def release(self, entry: PrefixEntry) -> None:
+        if entry.refs <= 0:
+            raise RuntimeError("release() without a matching lookup ref")
+        entry.refs -= 1
+
+    # ------------------------------------------------------------ insert
+    def divergence_chunks(self, tokens) -> int:
+        """Depth (in chunks) of the deepest existing trie node along the
+        prompt's chunk path — where this prompt diverges from everything
+        already stored. An entry inserted here is the longest prefix this
+        prompt shares with any prior one."""
+        n = len(tokens) // self.chunk
+        depth, node = 0, self.root
+        for i, key in enumerate(self._keys(tokens, n)):
+            node = node.children.get(key)
+            if node is None:
+                break
+            depth = i + 1
+        return depth
+
+    def has_entry(self, tokens, n_chunks: int) -> bool:
+        node = self.root
+        for key in self._keys(tokens, n_chunks):
+            node = node.children.get(key)
+            if node is None:
+                return False
+        return node.entry is not None
+
+    def make_room(self, nbytes: int, min_evict: int = 0):
+        """Evict LRU unreferenced entries until ``nbytes`` more fits the
+        budget AND at least ``min_evict`` entries are freed (the store
+        passes 1 when its slot pool is full). Returns the evicted entries
+        (caller releases their device slots), or None — trie unchanged —
+        when the demand cannot be met (all candidates referenced, or
+        nbytes alone exceeds capacity)."""
+        if nbytes > self.capacity:
+            return None
+        victims, freed = [], 0
+        cands = sorted((e for e in self.entries if e.refs == 0),
+                       key=lambda e: e.tick)
+        i = 0
+        while (self.bytes - freed + nbytes > self.capacity
+               or len(victims) < min_evict):
+            if i >= len(cands):
+                return None
+            victims.append(cands[i])
+            freed += cands[i].nbytes
+            i += 1
+        for e in victims:
+            self._remove(e)
+        return victims
+
+    def attach(self, tokens, n_chunks: int, nbytes: int,
+               slot: int) -> PrefixEntry:
+        """Create the entry for the first ``n_chunks`` chunks of
+        ``tokens`` (path nodes are created as needed). The caller has
+        already made room and copied the KV into ``slot``."""
+        node = self.root
+        for key in self._keys(tokens, n_chunks):
+            child = node.children.get(key)
+            if child is None:
+                child = node.children[key] = _TrieNode(key, node)
+            node = child
+        if node.entry is not None:
+            raise RuntimeError(f"entry already stored at depth {n_chunks}")
+        entry = PrefixEntry(slot, n_chunks * self.chunk, nbytes, node)
+        node.entry = entry
+        self.entries.append(entry)
+        self.bytes += nbytes
+        self._tick += 1
+        entry.tick = self._tick
+        return entry
+
+    def _remove(self, entry: PrefixEntry) -> None:
+        node = entry.node
+        node.entry = None
+        self.entries.remove(entry)
+        self.bytes -= entry.nbytes
+        # prune now-empty path nodes so stale chunks don't count as
+        # divergence points for future inserts
+        while (node is not self.root and node.entry is None
+               and not node.children):
+            parent = node.parent
+            del parent.children[node.key]
+            node = parent
+
+
+class PrefixStore:
+    """Device half of the prefix cache for one pad bucket: a ``CachePool``
+    holding stored prefixes plus the trie that indexes them. Slots have
+    the same ``max_len`` as the lane pool, so a load is a whole-slot
+    copy. Owned by the scheduler worker thread. Loads and inserts run
+    eagerly, as in-place index copies; the engine's hit program reads
+    the store's slots itself (``engine._chunk_fn``)."""
+
+    def __init__(self, cfg, n_slots: int, max_len: int, chunk: int, *,
+                 capacity_bytes: Optional[int] = None, dtype=torch.bfloat16,
+                 kv_quant=None, device=None):
+        self.pool = CachePool(cfg, n_slots, max_len, dtype=dtype,
+                              kv_quant=kv_quant, device=device)
+        self.entry_bytes = sum(x.numel() * x.element_size()
+                               for _, x in _leaves(self.pool._template))
+        if capacity_bytes is None:
+            capacity_bytes = n_slots * self.entry_bytes
+        self.trie = PrefixTrie(chunk, capacity_bytes)
+        self.chunk = chunk
+
+    @property
+    def bytes_used(self) -> int:
+        return self.trie.bytes
+
+    def lookup(self, tokens) -> Optional[PrefixEntry]:
+        return self.trie.lookup(tokens)
+
+    def release(self, entry: PrefixEntry) -> None:
+        self.trie.release(entry)
+
+    def load_many(self, entries: Sequence[PrefixEntry], dst_pool: CachePool,
+                  dst_slots: Sequence[int]) -> None:
+        """Copy-on-reference: every entry's stored KV into its
+        destination slot (claimed, no reset needed: the copy overwrites
+        the whole slot)."""
+        _load_slots(dst_pool.caches, self.pool.caches,
+                    dst_pool._idx(dst_slots),
+                    self.pool._idx([e.slot for e in entries]))
+
+    def insert(self, tokens, matched_tokens: int, src_pool: CachePool,
+               src_slot: int):
+        """Insert-on-complete. Two candidate depths per finished prompt:
+        the divergence depth (the longest prefix shared with anything
+        already in the trie — what the NEXT similar prompt will actually
+        hit) and the full depth ``len(tokens)//chunk``. Each is stored
+        only if strictly deeper than ``matched_tokens`` (what this
+        request itself reused) and not already present. Returns
+        (inserted, evicted) counts."""
+        inserted = evicted = 0
+        full = len(tokens) // self.chunk
+        div = min(self.trie.divergence_chunks(tokens), full)
+        depths = []
+        for d in (div, full):
+            if (d * self.chunk > matched_tokens and d not in depths
+                    and not self.trie.has_entry(tokens, d)):
+                depths.append(d)
+        for d in depths:
+            victims = self.trie.make_room(
+                self.entry_bytes,
+                min_evict=0 if self.pool.free_slots else 1)
+            if victims is None:
+                break                      # budget full of referenced entries
+            for e in victims:
+                self.pool.release(e.slot)
+            evicted += len(victims)
+            slot = self.pool.claim([("prefix", d)])[0]
+            self.pool.caches = _store_prefix(
+                self.pool.caches, src_pool.caches, self.pool._idx([slot]),
+                src_pool._idx([src_slot]), d * self.chunk)
+            self.pool.lengths[slot] = d * self.chunk
+            self.trie.attach(tokens, d, self.entry_bytes, slot)
+            inserted += 1
+        return inserted, evicted

@@ -178,6 +178,25 @@ def test_graph_cache_replays_and_counts_launches(monkeypatch):
     flash_attention.launches = before
 
 
+def test_collector_paused_nests_and_restores():
+    """Graph capture pauses the cyclic collector (a collection could
+    destroy an unreferenced engine's graphs mid-capture): nested holders
+    share one pause, and the collector's prior state comes back."""
+    import gc
+    was = gc.isenabled()
+    try:
+        for start in (True, False):
+            (gc.enable if start else gc.disable)()
+            with graphs.collector_paused():
+                assert not gc.isenabled()
+                with graphs.collector_paused():
+                    assert not gc.isenabled()
+                assert not gc.isenabled()
+            assert gc.isenabled() is start
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 # ------------------------------------------------------ against the JAX
 def test_tokens_equal_the_jax_continuous_engine(jx, qwen):
     """Greedy, sampled, budget-capped and eos-stopped requests over both

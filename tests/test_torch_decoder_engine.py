@@ -209,9 +209,11 @@ def test_warmup_serves_each_bucket_and_discard_drops_it(params):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(prefill_chunk=8), NotImplementedError, "item 7"),
-    (dict(prefix_cache=True, prefill_chunk=8), NotImplementedError,
-     "item 8"),
+    (dict(prefill_chunk=0), ValueError, "prefill_chunk must be >= 1"),
+    (dict(pad_buckets=(32,), prefill_chunk=12, max_new_tokens=2),
+     ValueError, "prefill_chunk=12 rounds bucket 32"),
+    (dict(arch="recurrentgemma-9b", prefix_cache=True, prefill_chunk=8),
+     ValueError, "pure global-attention pattern"),
     (dict(spec_decode=True), NotImplementedError, "item 10"),
     (dict(continuous=False, use_cache_pool=False, weight_quant="int4"),
      ValueError, "weight_quant must be None or 'int8'"),
@@ -223,10 +225,15 @@ def test_warmup_serves_each_bucket_and_discard_drops_it(params):
      ValueError, "continuous decoder path"),
 ])
 def test_decoder_config_gates_raise(params, kw, exc, match):
-    """The continuous path's features that are not ported name their
-    ROADMAP item; the others are the JAX engine's own errors."""
+    """Speculative decoding, not ported, names its ROADMAP item; the
+    others are the JAX engine's own errors: a chunk below 1, a chunk
+    whose round-up wraps the slot's ring, the prefix cache on the hybrid
+    (``arch``: the config to build, checked before the weights are
+    read)."""
+    kw = dict(kw)
+    cfg = get_config(kw.pop("arch"), smoke=True) if "arch" in kw else CFG
     with pytest.raises(exc, match=match):
-        ServingEngine(CFG, params, EngineConfig(mode="decoder", **kw),
+        ServingEngine(cfg, params, EngineConfig(mode="decoder", **kw),
                       device="cpu")
 
 
@@ -270,3 +277,10 @@ def test_jax_engine_rejects_the_same_features(jx):
             jx["Engine"](jx["cfg"], jx["params"], jx["EngineConfig"](
                 mode="decoder", continuous=False, use_cache_pool=False,
                 **kw))
+    for kw, match in ((dict(prefill_chunk=0), "prefill_chunk must be >= 1"),
+                      (dict(pad_buckets=(32,), prefill_chunk=12,
+                            max_new_tokens=2),
+                       "prefill_chunk=12 rounds bucket 32")):
+        with pytest.raises(ValueError, match=match):
+            jx["Engine"](jx["cfg"], jx["params"], jx["EngineConfig"](
+                mode="decoder", **kw))

@@ -363,23 +363,102 @@ def test_smoke_grid_writes_the_port_artifacts(jx, tmp_path):
         assert json.load(f) == json.loads(json.dumps(want))
 
 
-@pytest.mark.parametrize("flag,items", [
-    ("--staggered", ("item 7",)),
-    ("--prefix-cache", ("item 7", "item 8")),
-    ("--quant", ("item 7",)),
-    ("--spec-decode", ("item 7", "item 10")),
+@pytest.mark.parametrize("flag,names", [
+    ("--staggered", ("staggered",)),
+    ("--prefix-cache", ("staggered_shared", "staggered_shared_pc")),
+    ("--quant", ("staggered_quant", "staggered_quant_q8")),
+    ("--spec-decode", None),
 ])
-def test_decoder_scenarios_raise_naming_their_items(tmp_path, flag, items):
-    """The decoder scenarios serve through the continuous decoder (ported)
-    with prefill_chunk (item 7), and the prefix cache (item 8) or
-    speculative decoding (item 10) where they use them."""
+def test_decoder_scenarios_raise_naming_their_items(jx, tmp_path,
+                                                     monkeypatch, flag,
+                                                     names):
+    """The decoder scenarios serve through the continuous decoder with
+    chunked prefill, the prefix cache and int8 W+KV, on the smoke grid:
+    the scenarios, engine configs and prompts are the ones JAX's CLI
+    builds for the same flags (its engine stubbed), every record has
+    JAX's fields and a compile-clean window, and the drift report's A/B
+    cells are what JAX's pricers make of the same records. The
+    speculative pair still raises naming item 10 only, before any engine
+    or file."""
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError) as e:
-        experiment.main(["--smoke", "--device", "cpu", flag, "--out-dir",
-                         str(out)])
-    assert all(i in str(e.value) for i in items), str(e.value)
-    assert "item 6" not in str(e.value)
-    assert not out.exists()             # raised before any engine or file
+    argv = ["--smoke", "--device", "cpu", "--profiles", "AWS/C",
+            "--requests", "3", flag, "--out-dir", str(out)]
+    if names is None:
+        with pytest.raises(NotImplementedError) as e:
+            experiment.main(argv)
+        assert "item 10" in str(e.value), str(e.value)
+        assert "item 7" not in str(e.value) and "item 8" not in str(e.value)
+        assert not out.exists()
+        return
+    made = {}
+    factory = experiment.make_engine_factory
+
+    def recording(args):
+        make = factory(args)
+
+        def build(scenario):
+            eng, sentences, sampling = make(scenario)
+            made[scenario.name] = (eng.ec, sentences, sampling)
+            return eng, sentences, sampling
+        return build
+    monkeypatch.setattr(experiment, "make_engine_factory", recording)
+    experiment.main(argv)
+
+    theirs = jx("launch.experiment")
+    built = {}
+
+    class StubEngine:                    # JAX's factory, no engine served
+        def __init__(self, cfg, params, ec, draft=None):
+            built["ec"] = ec
+
+        def warmup(self):
+            pass
+    monkeypatch.setattr(theirs, "ServingEngine", StubEngine)
+    import argparse
+    ns = argparse.Namespace(
+        smoke=True, ladder=[1, 2], repeats=1, staggered=flag ==
+        "--staggered", prefix_cache=flag == "--prefix-cache",
+        quant=flag == "--quant", spec_decode=False, spec_k=4,
+        arch="qwen2-0.5b", requests=3, gap=0.05, max_new_tokens=8,
+        max_batch=4, max_inflight=None, bucket=32, segment_width="adaptive",
+        seed=0)
+    want = theirs.build_scenarios(ns)
+    assert [s.name for s in want] == ["ladder", *names]
+    rows = runner.read_jsonl(str(out / experiment.GRID_FILE))
+    assert [r["scenario"]["name"] for r in rows] == ["ladder", *names]
+    jfactory = theirs.make_engine_factory(ns)
+    for sc, row in zip(want[1:], rows[1:]):
+        assert row["scenario"] == sc.to_dict()
+        assert tuple(sorted(row)) == tuple(sorted(
+            jx("deploy.runner").RECORD_FIELDS))
+        _, jsent, jsp = jfactory(sc)
+        ec, sent, sp = made[sc.name]
+        assert {k: v for k, v in dataclasses.asdict(ec).items()} == {
+            k: getattr(built["ec"], k) for k in dataclasses.asdict(ec)}
+        assert len(sent) == len(jsent) == 64
+        for a, b in zip(sent, jsent):
+            np.testing.assert_array_equal(a, b)
+        assert sp.max_new_tokens == jsp.max_new_tokens == 8
+        cell, win = row["cells"][0], row["engine_window"]
+        assert cell["n_requests"] == 3 and cell["total_tokens"] == 24
+        assert win["requests"] == 3 and win["jit_compiles"] == 0
+        assert row["engine"]["continuous"] is True
+        lanes = win["lanes"].values()
+        if sc.name.endswith("_pc"):
+            assert sum(l["prefix_hits"] + l["prefix_misses"]
+                       for l in lanes) == 3
+    with open(out / experiment.DRIFT_FILE) as f:
+        drift = json.load(f)
+    for key, fn in (("prefix_cache", "prefix_cache_cells"),
+                    ("quant", "quant_cells")):
+        if key not in drift:
+            continue
+        cells = getattr(experiment, fn)(rows)
+        assert cells == getattr(theirs, fn)(rows)
+        assert len(cells) == 1 and drift[key] == json.loads(
+            json.dumps(cells))
+    assert ("prefix_cache" in drift) is (flag == "--prefix-cache")
+    assert ("quant" in drift) is (flag == "--quant")
 
 
 # --------------------------------------------------- (i) engine summary

@@ -178,13 +178,14 @@ def test_close_fails_pending_futures(params):
 
 
 def test_unported_modes_raise(params):
-    """The continuous decoder serves; its chunked prefill (item 7) is not
-    ported and raises naming the item. Quantization is ported and takes
-    the JAX engine's errors: a bad weight_quant, and kv_quant outside
-    decoder mode."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """The continuous decoder serves with chunked prefill; its
+    speculative decoding (item 10) is not ported and raises naming the
+    item. Quantization is ported and takes the JAX engine's errors: a bad
+    weight_quant, and kv_quant outside decoder mode."""
+    with pytest.raises(NotImplementedError, match="item 10"):
         ServingEngine(CFG, params, EngineConfig(mode="decoder",
-                                                prefill_chunk=8),
+                                                prefill_chunk=8,
+                                                spec_decode=True),
                       device="cpu")
     for kw, match in ((dict(weight_quant="int4"), "weight_quant"),
                       (dict(kv_quant="int8"), "requires mode='decoder'")):

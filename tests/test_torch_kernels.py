@@ -200,7 +200,7 @@ def test_block_sizes_are_built_tiles():
     assert ops.attn_block_sizes("prefill", 128, bh=384) == (64, 32)
     assert ops.attn_block_sizes("prefill", 128, bh=12) == (32, 32)
     assert ops.attn_block_sizes("decode", 1) == (1, 32)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="naive_attention"):
         ops.attn_block_sizes("chunk", 16)
 
 

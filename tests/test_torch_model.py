@@ -172,7 +172,7 @@ def test_unported_paths_raise(weights):
     _, tp = weights
     with pytest.raises(KeyError, match="not yet ported"):
         get_config("gemma2-27b")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="needs caches and positions"):
         forward(CFG, tp["encoder"], tokens=torch.zeros(1, 4, dtype=torch.long),
                 mode="chunk")
 
