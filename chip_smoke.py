@@ -171,10 +171,31 @@ Phases (each raises on failure; nothing is caught):
      entry evicts and stays equal to cold; a request's prefill device
      time cold (its chunk programs) against warm (one hit program);
  26. (after phase 20) the deploy lab's decoder scenarios
-     (``--staggered --prefix-cache --quant``, full-width Qwen2-0.5B,
-     the CLI's defaults) over the 21 paper profiles: records, cells and
-     compile-clean windows checked, the ``prefix_cache`` and ``quant``
-     cells printed per profile, the grid written to ``chiprun_out/lab``.
+     (``--staggered --prefix-cache --quant --spec-decode``, full-width
+     Qwen2-0.5B, the CLI's defaults) over the 21 paper profiles:
+     records, cells and compile-clean windows checked, the
+     ``prefix_cache`` and ``quant`` cells printed per profile and the
+     ``spec_decode`` cells for AWS/C, AWS/G and Azure/A, the grid
+     written to ``chiprun_out/lab``;
+ 27. (after phase 25) speculative decoding on Qwen2-0.5B at full width,
+     bf16, float and int8 W+KV: (a) K2 with S > 1 queries a row at widths
+     1-16 x S 2-5 in rings of 148 and 532 slots (fp32, and int8
+     dequantized to bf16) at the plain engine's split partition, against
+     its plain version within 2e-2 with exact visits, and bit for bit
+     against S single-query launches and the ring cut to the plain
+     engine's length (trailing dead splits), and the decode route
+     (``ops.gqa_decode``) picking the same partition at S = 1; timed
+     at the verify shape (16 x 5 queries over 532 slots) beside its
+     plain version, SDPA and its bound; (b) ``verify_chunk`` logits
+     against spec_k + 1 ``decode_step`` logits bit for bit at widths
+     1-16 x spec_k 1-4, verify in the spec engine's ring and decode in
+     the plain one, and the first M at which unblocked products would
+     part from a decode step's rows; (c) phase 23's load through the
+     spec engine (spec_k 4, self-drafted): every stream equal to phase
+     23's, a compile-clean window after ``warmup(sampled=True)``, launch
+     counts against joins and rounds, a captured round against the same
+     round uncaptured, the accept rate and tokens/s; (e) a captured
+     round at width 1 and 16 beside phase 23's 4-step segments.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its design and
 its instantiations' registers), then as the last line
@@ -183,6 +204,7 @@ CUDA is missing or the repository's ``src/`` is not beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -266,10 +288,11 @@ def kernel_rows(prof, n):
     return rows
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3):
+def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int = 1):
     """The card's own time for one call of ``fn``: the summed device time
-    of every kernel it runs, from the profiler (None if it saw none in
-    two tries).
+    of every kernel it runs, from the profiler (None if it saw fewer than
+    ``launches`` kernel launches a call in two tries: a trace that lost
+    one of K2's two launches once read below its bound).
     Unlike ``cuda_ms`` this leaves out the host's launch overhead."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -282,9 +305,36 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
                 fn()
             torch.cuda.synchronize()
         rows = kernel_rows(prof, iters)
-        if rows:
+        if sum(r[1] for r in rows) >= launches:
             return sum(r[0] for r in rows)
     return None
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5, warmup: int = 3):
+    """The card's time for one call of ``fn`` with no host time between
+    its kernels: ``iters`` calls captured in one CUDA graph, timed by
+    CUDA events around ``replays`` replays. K2's time in every row (its
+    trace, ``device_ms``, has lost one of K2's two launches in long runs;
+    where both read, they agreed within 5%)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def fmt_ms(t):
@@ -854,8 +904,12 @@ def served_logits_diff(cfg, params, toks, lens, kv_quant):
 
 
 def reset_launches(kernels):
+    """Zero every launch counter of ``kernels``, K2's count of its S > 1
+    launches (``verify_launches``) too."""
     for fn in kernels:
         fn.launches = 0
+        if hasattr(fn, "verify_launches"):
+            fn.verify_launches = 0
 
 
 def phase_decoder_engine(cfg, params, kernels, *, quant=None,
@@ -992,10 +1046,12 @@ def phase_decoder_engine(cfg, params, kernels, *, quant=None,
 def phase_decode_timings(da, name, m=DECODE_MAIN,
                          shapes=tuple((B, L) for B in (1, 8, 32)
                                       for L in (144, 528))):
-    """K2 by device time at each (B, L) of ``shapes`` (default: B in {1,
-    8, 32} x L in {144, 528}) with ``m``'s heads (default Qwen2's, 14 / 2
-    of 64), bf16 q over an fp32 cache, every slot live; beside it its
-    bound, plain version and SDPA. Returns the row of ``m``'s (B, L)."""
+    """K2 at each (B, L) of ``shapes`` (default: B in {1, 8, 32} x L in
+    {144, 528}) with ``m``'s heads (default Qwen2's, 14 / 2 of 64), bf16
+    q over an fp32 cache, every slot live; beside it its bound, plain
+    version and SDPA. K2's own time is ``graph_ms``'s, at every shape
+    and in every run (the profiler's, printed beside it, has lost one of
+    its two launches in long runs). Returns the row of ``m``'s (B, L)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1012,8 +1068,9 @@ def phase_decode_timings(da, name, m=DECODE_MAIN,
 
         def k2():
             return da.decode_attention(q, k, v, qp, kvp)
-        t_k = device_ms(k2)
+        t_k = device_ms(k2, launches=2)
         t_ev = cuda_ms(k2)
+        t_g = graph_ms(k2)
         t_p = device_ms(lambda: da.decode_attention_plain(
             q, k, v, qp, kvp), iters=5)
         qt = q.transpose(1, 2)                           # (B, Hq, 1, D)
@@ -1026,12 +1083,13 @@ def phase_decode_timings(da, name, m=DECODE_MAIN,
         n_split = da.decode_splits(B, Hkv, L)[0]
         print(f"timing K2 B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} bf16 q "
               f"fp32 cache, grid {B * Hkv} x {n_split} splits and a merge, "
-              f"device time (both launches): kernel "
-              f"{fmt_ms(t_k)}, plain {fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}, "
-              f"bound {bound:.5f} ms ({by}); kernel by events over "
-              f"back-to-back calls {t_ev:.4f} ms [{name}]", flush=True)
+              f"kernel over a captured graph of 20 calls {t_g:.4f} ms, "
+              f"by the profiler (both launches) {fmt_ms(t_k)}, by events "
+              f"over back-to-back calls {t_ev:.4f} ms; device time: plain "
+              f"{fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}; bound {bound:.5f} ms "
+              f"({by}) [{name}]", flush=True)
         if (B, L) == (m["B"], m["L"]):
-            main = (t_k if t_k is not None else t_ev, t_p, t_s, bound, by)
+            main = (t_g, t_p, t_s, bound, by)
     return main
 
 
@@ -2217,7 +2275,8 @@ def phase_continuous(cfg, params, kernels, name, *, quant=None):
     on the pool's bytes; the end tiers' segments captured against
     uncaptured. ``quant="int8"`` serves int8 weights and KV. Every
     request's tokens must be the same in all three engines. Returns the
-    window's K1..K5 launches."""
+    window's K1..K5 launches, the served streams (phase 27 holds the
+    speculative engine to them) and ``tier_timings``' readings."""
     from repro_torch.serving import EngineConfig, ServingEngine
     tag = " int8 W+KV" if quant else ""
     load = cont_load(cfg, 23)
@@ -2276,7 +2335,7 @@ def phase_continuous(cfg, params, kernels, name, *, quant=None):
               f"the bucket-128 pool for {n_sets} sets of live slots",
               flush=True)
         t0 = time.perf_counter()
-        tier_timings(eng, 128, name, tag)
+        segments = tier_timings(eng, 128, name, tag)
         print(f"continuous{tag}: tier timings took "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
@@ -2309,7 +2368,7 @@ def phase_continuous(cfg, params, kernels, name, *, quant=None):
     print(f"continuous{tag}: reference engines took "
           f"{time.perf_counter() - t0:.1f} s, the phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return launches, streams["adaptive"], segments
 
 
 def compare_streams(streams, what):
@@ -2392,7 +2451,8 @@ def tier_timings(eng, bucket, name, tag):
     """The smallest and the largest width tier's decode segment
     (``decode_segment`` steps) of the engine's bucket, captured (a replay
     of its program) and the same program called uncaptured: wall,
-    kernels and device idle share."""
+    kernels and device idle share. Returns {width: captured reading}."""
+    out = {}
     for width in (eng._tiers[0], eng._tiers[-1]):
         slots = list(range(width))
         rows = (np.full((width, 1), 7, np.int32),
@@ -2418,6 +2478,8 @@ def tier_timings(eng, bucket, name, tag):
               f"({eng.ec.decode_segment} steps): captured "
               f"{fmt_reading(cap)}; uncaptured {fmt_reading(unc)} "
               f"[{name}]", flush=True)
+        out[width] = cap
+    return out
 
 
 # ------------------------------------- a row's bits: encoder, eager decoder
@@ -3219,27 +3281,36 @@ def whole_donor(cfg, params, base, C, name, tie, kv_quant, rng):
 def phase_lab_decoder(kernels, name):
     """26. The deploy lab's decoder scenarios on the card:
     ``repro_torch.launch.experiment.main`` with ``--staggered
-    --prefix-cache --quant --arch qwen2-0.5b`` at the CLI's defaults
+    --prefix-cache --quant --spec-decode --arch qwen2-0.5b`` at the CLI's
+    defaults (spec_k 4, self-drafted)
     (buckets 16/32, max_batch 4, chunks of 8, 8 requests 50 ms apart, 8
     new tokens) over the 21 paper profiles, full-width Qwen2-0.5B. Every
     record must carry JAX's fields, its cells finite, its decoder window
-    compile-clean with 64 tokens; the drift report's ``prefix_cache`` and
-    ``quant`` cells (one per profile) are printed. Returns K1..K5
-    launches."""
+    compile-clean with 64 tokens; the drift report's ``prefix_cache``,
+    ``quant`` and ``spec_decode`` cells (one per profile) are printed,
+    the last for AWS/C, AWS/G and Azure/A (all 21 in the drift report).
+    K2's S > 1 launches are counted over the measured windows (from each
+    ``engine.window()`` to the next, ``window_launches``) and must be
+    one a layer for each round the ``_sd`` windows report. Returns
+    (K1..K5 launches, K2's S > 1 launches in the windows)."""
     from repro_torch.deploy.profiles import paper_profiles
     from repro_torch.deploy.runner import RECORD_FIELDS, read_jsonl
     from repro_torch.launch import experiment
     out_dir = Path(__file__).resolve().parent / "chiprun_out" / "lab"
     t0 = time.perf_counter()
     reset_launches(kernels)
-    experiment.main(["--staggered", "--prefix-cache", "--quant", "--arch",
-                     "qwen2-0.5b", "--out-dir", str(out_dir)])
+    with window_launches(lambda: kernels[1].verify_launches) as in_windows:
+        experiment.main(["--staggered", "--prefix-cache", "--quant",
+                         "--spec-decode", "--arch", "qwen2-0.5b",
+                         "--out-dir", str(out_dir)])
     launches = tuple(fn.launches for fn in kernels)
+    verify = in_windows[0]
     rows = read_jsonl(str(out_dir / experiment.GRID_FILE))
     with open(out_dir / experiment.DRIFT_FILE) as f:
         drift = json.load(f)
     names = ["ladder", "staggered", "staggered_shared",
-             "staggered_shared_pc", "staggered_quant", "staggered_quant_q8"]
+             "staggered_shared_pc", "staggered_quant", "staggered_quant_q8",
+             "staggered_spec", "staggered_spec_sd"]
     n_prof = len(paper_profiles())
     if [r["scenario"]["name"] for r in rows] != [
             n for n in names for _ in range(n_prof)]:
@@ -3257,15 +3328,28 @@ def phase_lab_decoder(kernels, name):
             raise AssertionError(f"lab cell {r['scenario']['name']} "
                                  f"{r['profile']['machine']}: {c}, "
                                  f"{win['jit_compiles']} captures")
-    pc, q8 = drift["prefix_cache"], drift["quant"]
-    if len(pc) != n_prof or len(q8) != n_prof:
-        raise AssertionError(f"{len(pc)} prefix-cache and {len(q8)} quant "
-                             f"cells for {n_prof} profiles")
+    pc, q8, sd = drift["prefix_cache"], drift["quant"], drift["spec_decode"]
+    if not len(pc) == len(q8) == len(sd) == n_prof:
+        raise AssertionError(f"{len(pc)} prefix-cache, {len(q8)} quant and "
+                             f"{len(sd)} spec cells for {n_prof} profiles")
+    from repro_torch.configs import get_config
+    n_layers = get_config("qwen2-0.5b").n_layers
+    sd_rounds = sum(l_["spec_rounds"] for r in rows
+                    if r["scenario"]["name"] == "staggered_spec_sd"
+                    for l_ in r["engine_window"]["lanes"].values())
+    if not sd_rounds:
+        raise AssertionError("the _sd runs ran no speculative round")
+    if verify != n_layers * sd_rounds:
+        raise AssertionError(f"lab: K2 counted {verify} S > 1 launches in "
+                             f"the windows, not {n_layers} layers x "
+                             f"{sd_rounds} rounds")
     hits = sum(l["prefix_hits"] for r in rows
                if r["scenario"]["name"] == "staggered_shared_pc"
                for l in r["engine_window"]["lanes"].values())
     print(f"lab decoder scenarios: {len(rows)} records, prefix hits "
-          f"{hits} over the _pc runs, K1..K5 launches {launches}; "
+          f"{hits} over the _pc runs, K1..K5 launches {launches} (warm-up "
+          f"included), K2's S > 1 launches {verify} in the windows "
+          f"({kernels[1].verify_launches} in all) for {sd_rounds} rounds; "
           f"{time.perf_counter() - t0:.1f} s [{name}]", flush=True)
     for a, b in zip(pc, q8):
         print(f"  {a['profile']}: $/1M requests shared-prompt "
@@ -3277,7 +3361,460 @@ def phase_lab_decoder(kernels, name):
               f"{b['usd_per_1m_requests_q8']:.4f}, footprint "
               f"{b['footprint_bytes_off']:,} -> {b['footprint_bytes_q8']:,} "
               f"B", flush=True)
-    return launches
+    for c in sd:
+        if c["profile"] in ("AWS/C", "AWS/G", "Azure/A"):
+            print(f"  {c['profile']}: spec decoding $/1M requests "
+                  f"{c['usd_per_1m_requests_off']:.4f} -> "
+                  f"{c['usd_per_1m_requests_sd']:.4f} "
+                  f"({c['usd_drop_pct']:+.1f}%), tokens/s "
+                  f"{c['tokens_per_s_off']:.1f} -> "
+                  f"{c['tokens_per_s_sd']:.1f}, accept rate "
+                  f"{c['accept_rate']:.4f} [{name}]", flush=True)
+    return launches, verify
+
+
+@contextlib.contextmanager
+def window_launches(counter):
+    """Yield a one-item list that, by the end of the block, holds the sum
+    of ``counter()``'s growth over the serving windows: from each
+    ``ServingEngine.window()`` call to the next on the same engine. The
+    lab's runner calls it once before each run (a reset) and once after
+    (the record), so warm-up before an engine's first window is left
+    out."""
+    import weakref
+
+    from repro_torch.serving import ServingEngine
+    window, total = ServingEngine.window, [0]
+    last = weakref.WeakKeyDictionary()     # engine -> counter at its call
+
+    def counted(self):
+        now = counter()
+        if self in last:
+            total[0] += now - last[self]
+        last[self] = now
+        return window(self)
+    ServingEngine.window = counted
+    try:
+        yield total
+    finally:
+        ServingEngine.window = window
+
+
+# ------------------------------------------- 27. speculative decoding
+SPEC_K = 4                      # draft tokens a round (the engine default)
+SPEC_WIDTHS = (1, 2, 4, 8, 16)  # the width tiers of max_batch 16
+SPEC_RINGS = (148, 532)         # a spec engine's ring at buckets 128, 512
+SPEC_BUCKET = 112               # 27 (b): 112 + 16 = 128 slots, whole tiles
+
+
+def spec_ring(rng, B, S, L, plain_len):
+    """(q_pos (B, S), kv_pos (B, L)) int32 of a verify chunk right after
+    its write in a spec engine's ring of L slots: row b holds positions
+    0..n_b + S - 1 (no wrap), the slots from ``plain_len`` on (the spec
+    headroom) positions past every query, the rest -1; query s sits at
+    n_b + s <= plain_len - 2, a position a plain engine's ring of
+    ``plain_len`` slots also holds."""
+    kv_pos = np.full((B, L), -1, np.int32)
+    q_pos = np.empty((B, S), np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, plain_len - S))
+        kv_pos[b, :n + S] = np.arange(n + S)
+        q_pos[b] = n + np.arange(S)
+    kv_pos[:, plain_len:] = np.arange(plain_len, L)
+    return q_pos, kv_pos
+
+
+def verify_bound_ms(q_pos, kv_pos, Hq, Hkv, D, q_item, kv_item):
+    """Least time for one verify-attention call on these inputs: the
+    slots live for any query of a row read once in the stored type, q
+    read and the output written once, the positions read once, over HBM;
+    or 4 flops per live (query, slot) pair, head dim and query head at
+    the bf16 tensor-core peak."""
+    live = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :]
+                                        <= q_pos[:, :, None])
+    n_any = int(live.any(1).sum())
+    n_pairs = int(live.sum())
+    B, S = q_pos.shape
+    nbytes = (2 * n_any * Hkv * D * kv_item + 2 * B * S * Hq * D * q_item
+              + kv_pos.size * 4 + q_pos.size * 4)
+    flops = 4 * n_pairs * Hq * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_spec_kernel(da, name):
+    """27 (a). K2 with S > 1 queries a row (bf16 q, Qwen2's 14 / 2 heads
+    of 64) at widths ``SPEC_WIDTHS`` x S = 2..5 in rings of ``SPEC_RINGS``
+    slots, over an fp32 ring and over an int8 ring dequantized to bf16,
+    at the plain engine's partition (``ops.decode_partition``): against its
+    plain version within ``BF16_TOL``, its visits against
+    ``live_tile_counts``; against S single-query launches over the same
+    ring, bit for bit; at S = 1, the decode route (``ops.gqa_decode`` at
+    ``width``) against the same launch at its partition, bit for bit (the
+    two routes pick one partition; that S = 1 is the single-query
+    kernel's code path rests on the source); and against the same queries over
+    the ring cut to the plain engine's length at that length's own
+    partition, bit for bit (the trailing splits of the headroom add exact
+    zeros). Then timed at the verify shape (width 16, S 5, 532 slots,
+    fp32 ring), K2-S by ``graph_ms`` as every K2 row, beside its plain
+    version, SDPA on the same mask and its bound. Returns (max error,
+    settings checked, (ms, plain ms, sdpa ms, bound ms, bound by))."""
+    from repro_torch.kernels import ops
+    from repro_torch.quant.kv import dequantize_kv, quantize_kv
+    rng = np.random.default_rng(27)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    Hq, Hkv, D = DECODE_MAIN["Hq"], DECODE_MAIN["Hkv"], DECODE_MAIN["D"]
+    bf16 = torch.bfloat16
+    worst, checked = 0.0, 0
+    t0 = time.perf_counter()
+    for L in SPEC_RINGS:
+        plain_len = L - SPEC_K
+        n_split, per = ops.decode_partition(CONT_BATCH, Hkv, plain_len)
+        for cache in ("fp32", "int8 -> bf16"):
+            for B in SPEC_WIDTHS:
+                for S in (2, 3, 4, 5):
+                    q = randn(gen, B, S, Hq, D, dtype=bf16)
+                    k, v = (randn(gen, B, L, Hkv, D, dtype=torch.float32)
+                            for _ in range(2))
+                    if cache != "fp32":
+                        k, v = (dequantize_kv(*quantize_kv(t), bf16)
+                                for t in (k, v))
+                    q_pos, kv_pos = spec_ring(rng, B, S, L, plain_len)
+                    qp = torch.from_numpy(q_pos).cuda()
+                    kvp = torch.from_numpy(kv_pos).cuda()
+                    part = dict(n_split=n_split, per_split=per)
+                    out, visits = da.decode_attention(
+                        q, k, v, qp, kvp, return_visits=True, **part)
+                    ref, ref_vis = da.decode_attention_plain(
+                        q.float(), k.to(bf16).float(), v.to(bf16).float(),
+                        qp, kvp, **part)
+                    err = (out.float() - ref).abs().max().item()
+                    want = da.live_tile_counts(q_pos, kv_pos, n_kv_heads=Hkv)
+                    ones = torch.cat([da.decode_attention(
+                        q[:, s:s + 1], k, v, qp[:, s], kvp, **part)
+                        for s in range(S)], 1)
+                    short = da.decode_attention(
+                        q, k[:, :plain_len].contiguous(),
+                        v[:, :plain_len].contiguous(), qp,
+                        kvp[:, :plain_len].contiguous(), **part)
+                    s1 = torch.equal(
+                        da.decode_attention(q[:, :1], k, v, qp[:, :1], kvp,
+                                            n_split=da.decode_splits(
+                                                CONT_BATCH, Hkv, L)[0]),
+                        ops.gqa_decode(q[:, :1], k, v, qp[:, 0], kvp,
+                                       width=CONT_BATCH))
+                    torch.cuda.synchronize()
+                    ok = {"plain": torch.allclose(out.float(), ref,
+                                                  atol=BF16_TOL,
+                                                  rtol=BF16_TOL),
+                          "visits": bool((visits.cpu().numpy() == want)
+                                         .all()
+                                         and (visits == ref_vis).all()),
+                          "single-query launches": torch.equal(out, ones),
+                          "gqa_decode partition": s1,
+                          "plain-length ring": torch.equal(out, short)}
+                    worst = max(worst, err)
+                    checked += 1
+                    if not all(ok.values()):
+                        raise AssertionError(
+                            f"K2-S width {B} S {S} L {L} {cache}: "
+                            f"{[k_ for k_, v_ in ok.items() if not v_]} "
+                            f"failed (max_abs_err {err:.3e})")
+        print(f"K2-S L={L} (plain ring {plain_len}, partition {n_split} x "
+              f"{per} tiles + trailing): widths {SPEC_WIDTHS} x S 2..5, "
+              f"fp32 and int8 -> bf16 rings: within {BF16_TOL} of the plain "
+              f"version (worst so far {worst:.3e}), visits exact, equal to "
+              f"S single-query launches and to the plain-length ring bit "
+              f"for bit; at S = 1 gqa_decode picks the same partition",
+              flush=True)
+    # timed at the verify shape
+    B, S, L = CONT_BATCH, SPEC_K + 1, SPEC_RINGS[-1]
+    n_split, per = ops.decode_partition(CONT_BATCH, Hkv, L - SPEC_K)
+    q = randn(gen, B, S, Hq, D, dtype=bf16)
+    k, v = (randn(gen, B, L, Hkv, D, dtype=torch.float32) for _ in range(2))
+    q_pos, kv_pos = spec_ring(rng, B, S, L, L - SPEC_K)
+    q_pos[:] = (L - SPEC_K - S - 1) + np.arange(S)     # every row full
+    kv_pos[:, :L - SPEC_K] = np.arange(L - SPEC_K)
+    qp = torch.from_numpy(q_pos).cuda()
+    kvp = torch.from_numpy(kv_pos).cuda()
+
+    def k2s():
+        return da.decode_attention(q, k, v, qp, kvp, n_split=n_split,
+                                   per_split=per)
+    t_k = device_ms(k2s, launches=2)
+    t_ev = cuda_ms(k2s)
+    t_g = graph_ms(k2s)
+    t_p = device_ms(lambda: da.decode_attention_plain(
+        q, k, v, qp, kvp, n_split=n_split, per_split=per), iters=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)                              # (B, Hq, S, D)
+    kt = k.to(bf16).transpose(1, 2)                     # cast beforehand
+    vt = v.to(bf16).transpose(1, 2)
+    mask = ((kvp[:, None, :] >= 0)
+            & (kvp[:, None, :] <= qp[:, :, None]))[:, None]
+    t_s = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                 enable_gqa=True))
+    bound, by = verify_bound_ms(q_pos, kv_pos, Hq, Hkv, D, 2, 4)
+    print(f"timing K2-S verify shape B={B} S={S} L={L} Hq={Hq} Hkv={Hkv} "
+          f"D={D} bf16 q fp32 ring, grid {B * S * Hkv} x {n_split} splits "
+          f"and a merge: kernel over a captured graph of 20 calls "
+          f"{t_g:.4f} ms, by the profiler (both launches) {fmt_ms(t_k)}, "
+          f"by events over back-to-back calls {t_ev:.4f} ms; device time: "
+          f"plain {fmt_ms(t_p)}, sdpa {fmt_ms(t_s)}; bound {bound:.5f} ms "
+          f"({by}); {checked} settings in {time.perf_counter() - t0:.1f} s "
+          f"[{name}]", flush=True)
+    return worst, checked, (t_g, t_p, t_s, bound, by)
+
+
+def unblocked_parting(cfg, params, label):
+    """27 (b): the first M (rows) at which the rows of an unblocked
+    product part from the same rows at a decode step's M (width 16): a
+    verify chunk of width x (spec_k + 1) rows would run there, which is
+    why verify runs its products per position. Returns {product: M or
+    None (none up to 16 x 5)}."""
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    from repro_torch.quant.weights import qeinsum
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(271)
+    blk = params["blocks"]["blk0"]
+    a, m = blk["attn"], blk["mlp"]
+    first = lambda t: t[0] if not isinstance(t, dict) else {    # noqa: E731
+        k_: v_[0] for k_, v_ in t.items()}
+    d, hd, hq = cfg.d_model, cfg.head_dim_, cfg.n_heads
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    prods = {
+        "wq": (d, lambda x: qeinsum("bsd,dhk->bshk", x, first(a["wq"]))),
+        "wk": (d, lambda x: qeinsum("bsd,dhk->bshk", x, first(a["wk"]))),
+        "wo": (hq * hd, lambda x: qeinsum(
+            "bshk,hkd->bsd", x.reshape(x.shape[0], 1, hq, hd),
+            first(a["wo"]))),
+        "w_in": (d, lambda x: qeinsum("bsd,dcf->bscf", x, first(m["w_in"]))),
+        "w_down": (cfg.d_ff, lambda x: qeinsum(
+            "bsf,fd->bsd", x, first(m["w_down"]))
+            if isinstance(m["w_down"], dict) else x @ m["w_down"][0]),
+        "head": (d, lambda x: lm_head_apply(cfg, None, x, w=w))}
+    top = CONT_BATCH * (SPEC_K + 1)
+    out = {}
+    with torch.inference_mode():
+        for pname, (K, fn) in prods.items():
+            x = randn(gen, top, 1, K, dtype=cfg.torch_dtype)
+            ref = fn(x[:CONT_BATCH].contiguous())
+            out[pname] = next((M for M in range(CONT_BATCH + 1, top + 1)
+                               if not torch.equal(
+                                   fn(x[:M].contiguous())[:CONT_BATCH],
+                                   ref)), None)
+    print(f"27 (b) {label}: first M at which an unblocked product's rows "
+          f"part from the same rows at M = {CONT_BATCH} (checked up to "
+          f"{top}): " + ", ".join(f"{k_} {'none' if v_ is None else v_}"
+                                  for k_, v_ in out.items()), flush=True)
+    return out
+
+
+def phase_spec_model(cfg, params, qparams, name):
+    """27 (b). Qwen2-0.5B at full width: ``verify_chunk`` logits against
+    k + 1 ``decode_step`` logits, bit for bit, at every width tier 1-16
+    and spec_k 1-4, float and int8 weights and KV. One width-16 prefill
+    of prompts in bucket ``SPEC_BUCKET`` fills both rings: the plain
+    engine's of ``SPEC_BUCKET + NEW_TOKENS`` slots (a whole number of
+    K2 tiles, so the spec headroom adds a tile) keeps the padded tail, as
+    a plain engine's slot does; the spec engine's, ``spec_k`` slots
+    longer, is cut at each prompt, as its install cuts it. Then two
+    rounds per setting: the chunk [t0, d1..dk] (random tokens) as k + 1
+    decode steps in the plain ring against one verify chunk in the spec
+    ring (K2 at the plain ring's partition at width 16,
+    ``ops.decode_partition``), the spec ring rolled back to a random
+    commit boundary, the next chunk from there. Also
+    ``unblocked_parting``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import (decode_step, forward, make_caches,
+                                    verify_chunk)
+    from repro_torch.models.layers import head_weight
+    rng = np.random.default_rng(272)
+    Lp = SPEC_BUCKET + NEW_TOKENS
+    part = ops.decode_partition(CONT_BATCH, cfg.n_kv_heads, Lp)
+    t0 = time.perf_counter()
+    n_checked = 0
+    for label, prm, kvq in (("float", params, None),
+                            ("int8 W+KV", qparams, "int8")):
+        unblocked_parting(cfg, prm, label)
+        w = head_weight(cfg, prm.get("lm_head"), prm["embed"])
+        _, toks, lens = prompt_batch(rng, CONT_BATCH, 8, SPEC_BUCKET - 8,
+                                     SPEC_BUCKET, cfg.vocab_size)
+        tt = torch.from_numpy(toks).cuda()
+        with torch.inference_mode():
+            full = make_caches(cfg, CONT_BATCH, Lp + SPEC_K,
+                               dtype=torch.float32, kv_quant=kvq,
+                               device="cuda")
+            forward(cfg, prm, tokens=tt, caches=full, return_hidden=True)
+            for width in SPEC_WIDTHS:
+                for k in range(1, SPEC_K + 1):
+                    Ls = Lp + k
+                    plain = {b: {k_: (t[:, :width, :Lp] if t.dim() > 2
+                                      else t[:, :width]).clone()
+                                 for k_, t in blk.items()}
+                             for b, blk in full.items()}
+                    spec = {b: {k_: (t[:, :width, :Ls] if t.dim() > 2
+                                     else t[:, :width]).clone()
+                                for k_, t in blk.items()}
+                            for b, blk in full.items()}
+                    cpos = lens[:width].astype(np.int32).copy()
+                    for blk in spec.values():       # the install's cut
+                        bnd = torch.from_numpy(cpos).cuda()
+                        blk["pos"][blk["pos"] >= bnd[None, :, None]] = -1
+                        blk["len"].copy_(torch.minimum(blk["len"],
+                                                       bnd[None, :]))
+                    for _ in range(2):
+                        chunk = torch.from_numpy(rng.integers(
+                            0, cfg.vocab_size, (width, k + 1))).cuda()
+                        pos = torch.from_numpy(cpos[:, None] + np.arange(
+                            k + 1, dtype=np.int32)).cuda()
+                        want = torch.cat([decode_step(
+                            cfg, prm, chunk[:, s:s + 1], pos[:, s:s + 1],
+                            plain, head_w=w, decode_width=CONT_BATCH)
+                            for s in range(k + 1)], 1)
+                        got = verify_chunk(cfg, prm, chunk, pos, spec,
+                                           head_w=w, partition=part)
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"27 (b) {label}: verify logits differ from "
+                                f"decode-step logits at width {width}, "
+                                f"spec_k {k}: max "
+                                f"{(got - want).abs().max().item():.3e}")
+                        n_checked += 1
+                        c = rng.integers(1, k + 2, width).astype(np.int32)
+                        cpos = cpos + c                 # commit, roll back
+                        bnd = torch.from_numpy(cpos).cuda()
+                        for blk in spec.values():
+                            blk["pos"][blk["pos"] >= bnd[None, :, None]] = -1
+                            blk["len"].copy_(torch.minimum(
+                                blk["len"], bnd[None, :]))
+            del full, plain, spec
+        print(f"27 (b) {label}: verify_chunk logits equal to spec_k + 1 "
+              f"decode_step logits bit for bit at widths {SPEC_WIDTHS} x "
+              f"spec_k 1..{SPEC_K}, two rounds each (verify in a ring of "
+              f"{Lp} + spec_k slots at the {Lp}-slot ring's partition, "
+              f"decode in the {Lp}-slot ring) [{name}]", flush=True)
+    print(f"27 (b): {n_checked} rounds checked in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return n_checked
+
+
+def phase_spec_engine(cfg, params, kernels, name, plain, *, quant=None):
+    """27 (c) and (e). Phase 23's load (48 requests over buckets
+    32/64/128, every other one sampled, max_batch 16, 2 ms apart) through
+    the continuous decoder with ``spec_decode`` (``SPEC_K`` proposals a
+    round, self-drafted as the lab drafts: ``experiment.self_draft``),
+    every program captured by
+    ``warmup(sampled=True)``: every request's tokens equal to ``plain``
+    (phase 23's streams of the same load, spec off), exactly; the
+    measured window compile-clean; K1/K2/K3 launches against the
+    window's joins and rounds; a captured round (bucket 128, width 16)
+    against the same round uncaptured, its tokens and views bit for bit;
+    the accept rate, rounds and tokens/s; then a captured round at width
+    1 and 16, wall, kernels and device idle share (beside phase 23's
+    4-step segments). ``quant="int8"`` serves int8 weights and KV.
+    Returns (K1..K5 launches, K2's S > 1 launches, as counted in the
+    window, {width: reading})."""
+    from repro_torch.launch.experiment import self_draft
+    from repro_torch.serving import EngineConfig, ServingEngine
+    tag = " int8 W+KV" if quant else ""
+    load = cont_load(cfg, 23)
+    dcfg, dparams = self_draft(cfg, params)
+    t_phase = time.perf_counter()
+    eng = ServingEngine(cfg, params, EngineConfig(
+        mode="decoder", max_batch=CONT_BATCH,
+        pad_buckets=tuple(b for _, _, b in CONT_SPANS),
+        max_new_tokens=NEW_TOKENS, weight_quant=quant, kv_quant=quant,
+        spec_decode=True, spec_k=SPEC_K), device="cuda",
+        draft=(dcfg, dparams))
+    try:
+        t0 = time.perf_counter()
+        eng.warmup(sampled=True)
+        t_warm = time.perf_counter() - t0
+        compiles = eng.metrics()["jit_compiles"]
+        eng.window()
+        reset_launches(kernels)
+        results, wall = serve_load(eng, load, CONT_GAP_S)
+        launches = tuple(fn.launches for fn in kernels)
+        verify = kernels[1].verify_launches
+        win = eng.window()
+        rounds = win["decode_segments"]
+        lanes = win["lanes"].values()
+        prop = sum(l_["spec_proposed"] for l_ in lanes)
+        acc = sum(l_["spec_accepted"] for l_ in lanes)
+        n_tok = sum(len(r.tokens) for r in results)
+        print(f"spec{tag}: warmup captured {compiles} programs in "
+              f"{t_warm:.1f} s; 48 requests in {wall:.3f} s, {n_tok} tokens "
+              f"= {n_tok / wall:.1f} tokens/s; window: jit_compiles "
+              f"{win['jit_compiles']}, prefill batches "
+              f"{win['prefill_batches']}, rounds {rounds} "
+              f"({sum(l_['spec_rounds'] for l_ in lanes)} by the lanes), "
+              f"proposed {prop}, accepted {acc} (accept rate "
+              f"{acc / max(prop, 1):.4f}), {n_tok / max(rounds, 1):.2f} "
+              f"tokens a round; K1..K5 launches {launches}, K2's S > 1 "
+              f"launches {verify} [{name}]", flush=True)
+        if win["jit_compiles"] != 0:
+            raise AssertionError(f"spec{tag}: the measured window built "
+                                 f"{win['jit_compiles']} programs")
+        L, Ld = cfg.n_layers, dcfg.n_layers
+        joins = win["prefill_batches"]
+        if verify != L * rounds:
+            raise AssertionError(f"spec{tag}: K2 counted {verify} S > 1 "
+                                 f"launches, not {L} layers x {rounds} "
+                                 f"rounds")
+        want = ((L + Ld) * joins, verify + Ld * (SPEC_K + 1) * rounds,
+                6 * L * (joins + (SPEC_K + 1) * rounds) if quant else 0,
+                0, 0)
+        if launches != want:
+            raise AssertionError(f"spec{tag} launches K1..K5 {launches} != "
+                                 f"{want}")
+        streams = [r.tokens for r in results]
+        same = [np.array_equal(a, b) for a, b in zip(streams, plain)]
+        print(f"spec{tag} vs spec off (phase 23's streams of the same "
+              f"load): {sum(same)} of {len(same)} requests token-identical",
+              flush=True)
+        if not all(same):
+            raise AssertionError(f"spec{tag}: {same.count(False)} requests "
+                                 f"differ from plain decoding")
+        # a captured round against the same round uncaptured
+        bucket, width = 128, CONT_BATCH
+        tok = np.full((width, 1), 7, np.int32)
+        pos = (40 + np.arange(width, dtype=np.int32))[:, None]
+        idx = list(range(width))
+        cap = eng._spec_round_call(bucket, width, tok, pos, idx)
+        views = eng._spec_view(bucket, width)
+        cap_views = [{b: {k_: t.clone() for k_, t in blk.items()}
+                      for b, blk in v.items()} for v in views]
+        fn = eng._spec_round_fn(bucket, width)
+        with torch.inference_mode():
+            direct = fn(torch.from_numpy(tok).cuda(),
+                        torch.from_numpy(pos).cuda(),
+                        torch.arange(width, device="cuda"), None, None,
+                        None).cpu().numpy()
+        same_views = all(torch.equal(a[b][k_], t)
+                         for a, v in zip(cap_views, views)
+                         for b, blk in v.items() for k_, t in blk.items())
+        same_toks = np.array_equal(np.concatenate(cap, 1), direct)
+        print(f"spec{tag}: captured round (bucket {bucket}, width {width}) "
+              f"vs the same round uncaptured: tokens "
+              f"{'equal' if same_toks else 'DIFFER'}, views "
+              f"{'equal' if same_views else 'DIFFER'}", flush=True)
+        if not (same_toks and same_views):
+            raise AssertionError(f"spec{tag}: captured round differs")
+        readings = {}
+        for w in (1, width):
+            readings[w] = program_reading(lambda: eng._spec_round_call(
+                bucket, w, tok[:w], pos[:w], idx[:w]), n_wall=5)
+            print(f"spec{tag} round bucket {bucket} width {w} (spec_k "
+                  f"{SPEC_K}, captured): {fmt_reading(readings[w])} "
+                  f"[{name}]", flush=True)
+    finally:
+        eng.close()
+    print(f"spec{tag}: the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, verify, readings
 
 
 def main() -> int:
@@ -3608,8 +4145,10 @@ def main() -> int:
     clock("phase 22")
 
     # ---- 23. the default continuous decoder, float and int8
-    cont = phase_continuous(qcfg, qparams, kernels, name)
-    cont8 = phase_continuous(qcfg, qparams, kernels, name, quant="int8")
+    cont, cont_streams, cont_segs = phase_continuous(qcfg, qparams, kernels,
+                                                     name)
+    cont8, cont8_streams, cont8_segs = phase_continuous(
+        qcfg, qparams, kernels, name, quant="int8")
     phase_continuous_long(qcfg, qparams, name)
     phase_continuous_long(qcfg, qparams, name, quant="int8")
 
@@ -3632,10 +4171,29 @@ def main() -> int:
     prefix = phase_prefix(qcfg, qparams, kernels, name, tie)
     prefix8 = phase_prefix(qcfg, qparams, kernels, name, tie8,
                            kv_quant="int8")
+
+    clock("phase 25")
+
+    # ---- 27. speculative decoding: K2 with S queries, verify against
+    # decode steps, the spec engine against phase 23's streams, float and
+    # int8
+    k2s_err, k2s_checked, k2s_times = phase_spec_kernel(da, name)
+    phase_spec_model(qcfg, qparams, qq, name)
+    spec, spec_verify, spec_rounds = phase_spec_engine(
+        qcfg, qparams, kernels, name, cont_streams)
+    spec8, spec8_verify, spec8_rounds = phase_spec_engine(
+        qcfg, qparams, kernels, name, cont8_streams, quant="int8")
+    for tag, rd, seg in (("", spec_rounds, cont_segs),
+                         (" int8 W+KV", spec8_rounds, cont8_segs)):
+        for w, r in rd.items():
+            print(f"spec{tag} bucket 128 width {w}: a round (spec_k "
+                  f"{SPEC_K}, captured) {fmt_reading(r)}; a 4-step segment "
+                  f"(phase 23, captured) {fmt_reading(seg[w])} [{name}]",
+                  flush=True)
     del qq, gq
     torch.cuda.empty_cache()
 
-    clock("phase 25")
+    clock("phase 27")
 
     # ---- 15. K5 against its plain version
     k5_err, k5_checked = phase_scan_parity(rs)
@@ -3703,7 +4261,7 @@ def main() -> int:
     clock("phase 20")
 
     # ---- 26. the lab's decoder scenarios
-    lab = phase_lab_decoder(kernels, name)
+    lab, lab_verify = phase_lab_decoder(kernels, name)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -3724,6 +4282,7 @@ def main() -> int:
                 "chunked hybrid": hyb_chunked[i],
                 "prefix (bucket 512)": prefix[i],
                 "prefix int8 KV (bucket 512)": prefix8[i],
+                "spec": spec[i], "spec int8": spec8[i],
                 "lab decoder scenarios": lab[i]}
 
     def hybrid_row(times, err=None, checked_256=None):
@@ -3759,13 +4318,22 @@ def main() -> int:
         "plain_ms": k2_p, "bound_ms": k2_bound, "bound_by": k2_by,
         "library_ms": k2_s, "check": "ok", "settings_checked": k2_checked,
         "visits_checked": True,
+        "ms_by": "graph_ms (every K2 row): 20 calls captured in one CUDA "
+                 "graph, CUDA events around 5 replays",
         "launches_by_path": by_path(1, enc_k2_launches),
         "design": "split-KV: (B*Hkv, n_split) blocks over 32-slot tiles, "
                   "cp.async of the raw cache type one tile ahead, warp "
                   "partial dots and a transposing shuffle reduction, then "
                   "a merge launch",
         "registers": registers("decode_attention"),
-        "head_dim_256": hybrid_row(k2h_times, k2h_err, k2h_checked)}, {
+        "head_dim_256": hybrid_row(k2h_times, k2h_err, k2h_checked),
+        "verify": dict(hybrid_row(k2s_times, k2s_err, k2s_checked),
+                       shape="B=16 S=5 L=532 14/2 heads of 64, bf16 q, "
+                             "fp32 ring",
+                       launches_by_path={"spec": spec_verify,
+                                         "spec int8": spec8_verify,
+                                         "lab spec pair (windows)":
+                                             lab_verify})}, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:50",

@@ -1,10 +1,15 @@
-// K2: single-query grouped-query decode attention over a ring KV cache, for
-// Hopper (sm_90a), split over the ring (flash-decoding).
+// K2: grouped-query decode attention over a ring KV cache, for Hopper
+// (sm_90a), split over the ring (flash-decoding), for S >= 1 queries a row.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
-// (decode_attention / _kernel), reached through ops.gqa_decode. For each
-// (batch row b, kv head h) the G query heads h*G .. h*G+G-1 attend over the
-// row's L cache slots. A slot is live when kv_pos >= 0, kv_pos <= q_pos and,
+// (decode_attention / _kernel), reached through ops.gqa_decode: one query a
+// row (S = 1) for a decode step, S = spec_k + 1 queries a row for a
+// speculative verify chunk. For each (batch row b, query s, kv head h) the
+// G query heads h*G .. h*G+G-1 of query s attend over the row's L cache
+// slots, at the query's own position q_pos[b, s]: query (b, s) computes
+// exactly what a single-query launch at that position computes, with the
+// same split partition and the same fold, so a verify chunk's attention
+// gives a decode step's bits. A slot is live when kv_pos >= 0, kv_pos <= q_pos and,
 // with a window, kv_pos > q_pos - window; empty slots hold kv_pos = -1, and
 // a wrapped ring needs nothing more, since validity comes from the absolute
 // positions. Scores are q.k * D^-1/2 in fp32, then the optional
@@ -13,7 +18,7 @@
 // denominator l sums p unrounded) and the output is acc / max(l, 1e-30) in
 // q's type, as on the TPU.
 //
-// Design. Two launches. decode_split runs a grid of (B * Hkv, n_split)
+// Design. Two launches. decode_split runs a grid of (B * Hkv, n_split, S)
 // blocks (256 threads; 128 at D = 64, so that four share an SM): the TPU's
 // sequential kv grid axis becomes, for each split, a loop over a
 // contiguous run of `per_split` tiles of BK = 32 slots. n_split is chosen
@@ -41,13 +46,20 @@
 // (they spilled under the 128-register cap of two blocks an SM). Two
 // __syncthreads a tile. The split writes its (m, l) per query head and
 // its unnormalised acc (G x D fp32) to scratch; a split with no live tile
-// writes (-1e30, 0, 0). decode_merge ((B * Hkv, G) blocks of D threads)
+// writes (-1e30, 0, 0). decode_merge ((B * Hkv, G, S) blocks of D threads)
 // folds the splits: m* = max m_s, l = sum l_s e^(m_s - m*),
 // o = sum acc_s e^(m_s - m*) / max(l, 1e-30) in q's type, and sums the
 // splits' visit counts. With one split this is the single-pass arithmetic
-// exactly. Inputs are read in the (B, L, Hkv, D) layout through their
-// strides; the ragged last tile is masked here. q and the cache may each
-// be fp32 or bf16; D in {64, 128, 256}; G <= 16.
+// exactly. The S queries of a row re-read its ring from L2 (one row's fp32
+// ring of 532 slots at Qwen2-0.5B's shapes is about 0.5 MB, 16 rows fit the
+// 50 MB L2), so the device memory traffic stays one read of the live ring.
+// A trailing split whose run of tiles lies past L, or holds only dead
+// tiles, writes (-1e30, 0, 0) and adds exact zeros to the fold: a caller
+// may cut a longer ring at a shorter ring's (n_split, per_split) and get
+// the shorter ring's bits. Inputs are read in the (B, L, Hkv, D) layout
+// through their strides (q as (B, S, Hq, D)); the ragged last tile is
+// masked here. q and the cache may each be fp32 or bf16; D in
+// {64, 128, 256}; G <= 16.
 //
 // Bound. Decode attention reads the live cache once and does 4 flops per
 // cached element per query head of its group: at Qwen2-0.5B's serving
@@ -60,7 +72,10 @@
 // Measured by python3 chip_smoke.py (phases 9 and 19) on an NVIDIA H100
 // 80GB HBM3 at 700 W, both launches by device time with a warm L2: 0.0095
 // ms at Qwen2-0.5B's shape (SDPA 0.0089 ms) and 0.0155 ms at
-// RecurrentGemma's (SDPA 0.0121 ms). PERF.md keeps the times of each run.
+// RecurrentGemma's (SDPA 0.0121 ms). A verify chunk (S = spec_k + 1) reads
+// the same live ring once from device memory and does S times the flops:
+// at width 16, S = 5 over 532 slots, still bound by its bytes. PERF.md
+// keeps the times of each run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -84,17 +99,19 @@ struct Params {
   const void* v;
   const int* q_pos;
   const int* kv_pos;
-  float* m_part;                  // (B * Hkv, n_split, G)
-  float* l_part;                  // (B * Hkv, n_split, G)
-  float* acc_part;                // (B * Hkv, n_split, G, D)
-  int* visit_part;                // (B * Hkv, n_split)
-  long long q_sb, q_sh;
+  float* m_part;                  // (S, B * Hkv, n_split, G)
+  float* l_part;                  // (S, B * Hkv, n_split, G)
+  float* acc_part;                // (S, B * Hkv, n_split, G, D)
+  int* visit_part;                // (S, B * Hkv, n_split)
+  long long q_rs, q_sh;           // q's stride over rows b * S + s
   long long k_sb, k_sl, k_sh;
   long long v_sb, v_sl, v_sh;
   long long p_sb, p_sl;
   int Hkv, G, L, window;          // window <= 0: no window
   int n_split, per_split;         // splits, tiles per split
   float softcap, scale;           // softcap <= 0: no softcap
+  int S;                          // queries a row (last: the fields
+                                  // above keep the S = 1 kernel's layout)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -242,14 +259,16 @@ __global__ void __launch_bounds__(nthreads<D>(), 512 / nthreads<D>())
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x;               // b * Hkv + hk
   const int split = blockIdx.y;
+  const int sq = blockIdx.z;               // the row's query s
   const int b = bh / p.Hkv;
   const int hk = bh % p.Hkv;
   const int G = p.G;
-  const int q_pos = p.q_pos[b];
+  const int row = b * p.S + sq;
+  const int q_pos = p.q_pos[row];
 
-  const TQ* qb = static_cast<const TQ*>(p.q) + b * p.q_sb +
+  const TQ* qb = static_cast<const TQ*>(p.q) + row * p.q_rs +
                  static_cast<long long>(hk) * G * p.q_sh;
   const TKV* kb = static_cast<const TKV*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const TKV* vb = static_cast<const TKV*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -404,7 +423,9 @@ __global__ void __launch_bounds__(nthreads<D>(), 512 / nthreads<D>())
     stage ^= 1;
   }
 
-  const long long part_row = static_cast<long long>(bh) * p.n_split + split;
+  // query s's partials follow the B * Hkv rows of query s - 1
+  const long long part_row =
+      (static_cast<long long>(sq) * gridDim.x + bh) * p.n_split + split;
 #pragma unroll
   for (int hh = 0; hh < HPW; ++hh) {
     const int g = warp + hh * NW;
@@ -422,15 +443,20 @@ __global__ void __launch_bounds__(nthreads<D>(), 512 / nthreads<D>())
   if (tid == 0) p.visit_part[part_row] = visits;
 }
 
-// One block of D threads per (b, kv head, query head): fold the splits'
+// One block of D threads per (b, kv head, query head, s): fold the splits'
 // partials, thread d owning output column d.
 template <typename TQ>
 __global__ void __launch_bounds__(256) decode_merge(
     const float* m_part, const float* l_part, const float* acc_part,
     const int* visit_part, void* out, int* visits, int G, int D,
-    int n_split) {
-  const int bh = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
-  const long long row0 = static_cast<long long>(bh) * n_split;
+    int n_split, int Hkv, int S) {
+  const int bh = blockIdx.x, g = blockIdx.y, sq = blockIdx.z;
+  const int d = threadIdx.x;
+  const long long row0 =
+      (static_cast<long long>(sq) * gridDim.x + bh) * n_split;
+  // the output row (b * S + s) * Hkv + hk of (B, S, Hq, D)
+  const long long orow =
+      (static_cast<long long>(bh / Hkv) * S + sq) * Hkv + bh % Hkv;
   float m = kNegInf;
 #pragma unroll 4
   for (int s = 0; s < n_split; ++s)
@@ -442,12 +468,12 @@ __global__ void __launch_bounds__(256) decode_merge(
     l += l_part[(row0 + s) * G + g] * w;
     o += acc_part[((row0 + s) * G + g) * D + d] * w;
   }
-  store(static_cast<TQ*>(out) + (static_cast<long long>(bh) * G + g) * D + d,
+  store(static_cast<TQ*>(out) + (orow * G + g) * D + d,
         o / fmaxf(l, 1e-30f));
   if (g == 0 && d == 0) {
     int n = 0;
     for (int s = 0; s < n_split; ++s) n += visit_part[row0 + s];
-    visits[bh] = n;
+    visits[orow] = n;
   }
 }
 
@@ -466,12 +492,12 @@ int launch(const Params& p, int B, void* out, int* visits,
     if (attr != cudaSuccess) return static_cast<int>(attr);
   }
   decode_split<TQ, TKV, D>
-      <<<dim3(B * p.Hkv, p.n_split), nthreads<D>(), bytes, stream>>>(p);
+      <<<dim3(B * p.Hkv, p.n_split, p.S), nthreads<D>(), bytes, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_merge<TQ><<<dim3(B * p.Hkv, p.G), D, 0, stream>>>(
+  decode_merge<TQ><<<dim3(B * p.Hkv, p.G, p.S), D, 0, stream>>>(
       p.m_part, p.l_part, p.acc_part, p.visit_part, out, visits, p.G, D,
-      p.n_split);
+      p.n_split, p.Hkv, p.S);
   return 0;
 }
 
@@ -490,17 +516,20 @@ extern "C" int decode_attention_block_k(void) { return BK; }
 extern "C" int decode_attention_max_g(void) { return MAXG; }
 
 // q_dtype / kv_dtype: 0 = float32, 1 = bfloat16. Strides are in elements;
-// the head-dim stride must be 1 and the cache's rows 16-byte aligned. The
-// output is (B, 1, Hq, D) contiguous, visits (B * Hkv,); m_part, l_part
-// (B * Hkv * n_split * G), acc_part (B * Hkv * n_split * G * D) fp32 and
-// visit_part (B * Hkv * n_split) int32 are scratch. Returns
+// the head-dim stride must be 1 and the cache's rows 16-byte aligned. q is
+// (B, S, Hq, D), its rows b * S + s q_rs elements apart (q_sb = S * q_ss,
+// or S = 1), and q_pos (B * S) contiguous. The output is (B, S, Hq, D)
+// contiguous, visits (B * S * Hkv,); m_part, l_part
+// (B * S * Hkv * n_split * G), acc_part (B * S * Hkv * n_split * G * D) fp32
+// and visit_part (B * S * Hkv * n_split) int32 are scratch. Returns
 // cudaGetLastError() after the two launches (0 = ok).
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* kv_pos, void* o, int* visits, float* m_part, float* l_part,
     float* acc_part, int* visit_part, int q_dtype, int kv_dtype, int D,
-    int B, int Hq, int Hkv, int L, int window, int n_split, int per_split,
-    float softcap, float scale, long long q_sb, long long q_sh,
+    int B, int S, int Hq, int Hkv, int L, int window, int n_split,
+    int per_split, float softcap, float scale, long long q_rs,
+    long long q_sh,
     long long k_sb, long long k_sl, long long k_sh, long long v_sb,
     long long v_sl, long long v_sh, long long p_sb, long long p_sl,
     void* stream) {
@@ -508,15 +537,15 @@ extern "C" int decode_attention_fwd(
   p.q = q; p.k = k; p.v = v; p.q_pos = q_pos; p.kv_pos = kv_pos;
   p.m_part = m_part; p.l_part = l_part; p.acc_part = acc_part;
   p.visit_part = visit_part;
-  p.q_sb = q_sb; p.q_sh = q_sh;
+  p.q_rs = q_rs; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_sl = k_sl; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_sl = v_sl; p.v_sh = v_sh;
   p.p_sb = p_sb; p.p_sl = p_sl;
-  p.Hkv = Hkv; p.G = Hq / Hkv; p.L = L; p.window = window;
+  p.S = S; p.Hkv = Hkv; p.G = Hq / Hkv; p.L = L; p.window = window;
   p.n_split = n_split; p.per_split = per_split;
   p.softcap = softcap; p.scale = scale;
-  if (p.G < 1 || p.G > MAXG || Hq % Hkv != 0 || B < 1 || L < 1 ||
-      n_split < 1 || per_split < 1 || n_split > 65535)
+  if (p.G < 1 || p.G > MAXG || Hq % Hkv != 0 || B < 1 || S < 1 || L < 1 ||
+      n_split < 1 || per_split < 1 || n_split > 65535 || S > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;

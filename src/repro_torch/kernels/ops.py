@@ -35,20 +35,20 @@ def attn_block_sizes(kind: str, sq: int, *, bh: int = 1,
     of the ``bh = B*Hq`` heads and is not mostly padding for ``sq``,
     else 32: short buckets waste fewer padded query rows and small
     batches fill more SMs. (A pair K1 is not built for runs only on the
-    CPU, where the plain version takes any tile.) Decode (K2): bq is 1 and bk the kernel's kv tile of 32 slots,
-    one warp wide, so a short request in a long ring, or a window, pays
-    only for its live tiles; the kernel is built for that one tile. The
-    heuristic is not yet tuned by measurement. (The TPU table also keys
-    on skv and the window.)
-    Attention of a chunk of queries over a cache has no kernel: chunked
-    prefill runs ``naive_attention`` in both packages."""
-    if kind == "decode":
+    CPU, where the plain version takes any tile.) Decode and verify (K2):
+    bq is 1 (each query of a verify chunk is its own block, as a decode
+    step's is) and bk the kernel's kv tile of 32 slots, one warp wide, so
+    a short request in a long ring, or a window, pays only for its live
+    tiles; the kernel is built for that one tile. The heuristic is not
+    yet tuned by measurement. (The TPU table also keys on skv and the
+    window.) Attention of a prefill chunk over a cache has no kernel:
+    chunked prefill runs ``naive_attention`` in both packages."""
+    if kind in ("decode", "verify"):
         return 1, DECODE_BLOCK_K
     if kind != "prefill":
         raise NotImplementedError(
             f"attention kind {kind!r} has no kernel: a prefill chunk over "
-            f"the cache runs naive_attention in both packages, and "
-            f"speculative verify is ROADMAP Queue 1 item 10")
+            f"the cache runs naive_attention in both packages")
     bqs, bk = kernel_tiles(dtype, head_dim)
     fits = [bq for bq in bqs
             if bq == 32 or sq > bq // 2 and bh * -(-sq // bq) >= 2 * H100_SMS]
@@ -67,18 +67,39 @@ def mha_prefill(q, k, v, *, causal=True, window=None, softcap=None,
                            softcap=softcap, kv_len=kv_len, bq=bq, bk=bk)
 
 
+def decode_partition(width: int, n_kv_heads: int, ring_len: int):
+    """(n_split, per_split): K2's partition of a decode step at ``width``
+    rows in a ring of ``ring_len`` slots, the split count
+    ``decode_attention.decode_splits`` picks for that width, each split
+    ``ceil(tiles / count)`` tiles. The partition sets the order of the
+    fold, so a row's bits depend on it: a speculative engine computes it
+    once from the plain engine's ring (``spec_k`` slots shorter) and its
+    verify chunks, given it, fold as a decode step there does."""
+    n_split = decode_splits(width, n_kv_heads, ring_len)[0]
+    n_tiles = -(-ring_len // DECODE_BLOCK_K)
+    return n_split, -(-n_tiles // n_split)
+
+
 def gqa_decode(q, k, v, q_pos, kv_pos, *, window=None, softcap=None,
-               width=None):
-    """q: (B, 1, Hq, D); k/v cache: (B, L, Hkv, D); q_pos: (B,); kv_pos:
-    (B, L) int32 -> (B, 1, Hq, D), at K2's one kv tile (the ``bk`` of
-    ``attn_block_sizes("decode", ...)``) and its split count
-    (``decode_attention.decode_splits`` for ``width`` rows, default B).
-    The split count sets the order of the fold, so a row's bits depend
-    on it: a fixed ``width`` keeps them whatever B is."""
-    n_split = (None if width is None else
-               decode_splits(width, k.shape[2], k.shape[1])[0])
+               width=None, partition=None):
+    """q: (B, S, Hq, D), S = 1 for a decode step or spec_k + 1 for a
+    verify chunk; k/v cache: (B, L, Hkv, D); q_pos: (B,) at S = 1, else
+    (B, S); kv_pos: (B, L) int32 -> (B, S, Hq, D), at K2's one kv tile
+    (the ``bk`` of ``attn_block_sizes("decode", ...)``). The split
+    partition is ``partition`` where it is given (``decode_partition``;
+    a ring longer than it covers gets trailing splits of dead tiles,
+    which add exact zeros), else ``decode_partition(width, Hkv, L)`` for
+    a fixed ``width``, which keeps a row's bits whatever B is, else the
+    kernel's own choice for B rows."""
+    if partition is None and width is not None:
+        partition = decode_partition(width, k.shape[2], k.shape[1])
+    if partition is None:
+        return decode_attention(q, k, v, q_pos, kv_pos, window=window,
+                                softcap=softcap)
+    n_split, per_split = partition
     return decode_attention(q, k, v, q_pos, kv_pos, window=window,
-                            softcap=softcap, n_split=n_split)
+                            softcap=softcap, n_split=n_split,
+                            per_split=per_split)
 
 
 def matmul(x, w):

@@ -12,26 +12,24 @@ against the paper.
       --device cpu
 
   # the decoder scenarios on the card: staggered arrivals, the
-  # prefix-cache and the int8 A/B pairs, full-width Qwen2-0.5B
+  # prefix-cache, int8 and speculative A/B pairs, full-width Qwen2-0.5B
   PYTHONPATH=src python -m repro_torch.launch.experiment \\
-      --staggered --prefix-cache --quant --arch qwen2-0.5b
+      --staggered --prefix-cache --quant --spec-decode --arch qwen2-0.5b
 
 The counterpart of ``repro/launch/experiment.py``, with its flags and
-defaults. It differs in three ways: the configs are full width on the
+defaults. It differs in two ways: the configs are full width on the
 card unless ``--smoke`` asks for the small ones (``--device cpu`` runs on
-the CPU); ``--spec-decode`` (and with it ``--spec-k`` and the
-``spec_decode`` pricer) raises ``NotImplementedError`` before any engine
-is built, because speculative decoding is ROADMAP Queue 1 item 10; and
-the artifacts carry the port's names, so a run never overwrites the JAX
-package's:
+the CPU), and the artifacts carry the port's names, so a run never
+overwrites the JAX package's:
 
   EXPERIMENT_torch_grid.jsonl   one ExperimentRecord per (profile x
                                 scenario)
   EXPERIMENT_torch_drift.json   drift_report(): measured $/1M sentences,
                                 cheapest-SLO machine, GPU-vs-CPU premium and
                                 the findings ledger, each diffed vs
-                                core.analysis; with ``--prefix-cache`` and
-                                ``--quant`` also the A/B pricers' cells
+                                core.analysis; with ``--prefix-cache``,
+                                ``--quant`` and ``--spec-decode`` also the
+                                A/B pricers' cells
 
 Every profile runs on this host: a $/1M sentences figure prices this
 host's throughput at the profile's list price (``deploy/runner.py``).
@@ -39,6 +37,7 @@ host's throughput at the profile's list price (``deploy/runner.py``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -59,17 +58,6 @@ DRIFT_FILE = "EXPERIMENT_torch_drift.json"
 DECODER_ARCHS = ("qwen2-0.5b", "recurrentgemma-9b")
 
 
-def check_scenarios(scenarios) -> None:
-    """Raise ``NotImplementedError`` if any scenario is one the port cannot
-    serve yet: the ``_sd`` pair runs speculative decoding, ROADMAP Queue
-    1 item 10."""
-    spec = [s.name for s in scenarios if s.name.endswith("_sd")]
-    if spec:
-        raise NotImplementedError(
-            f"scenarios {spec} serve through speculative decoding, which "
-            f"the port does not have yet: ROADMAP Queue 1 item 10")
-
-
 def make_engine_factory(args):
     """(scenario) -> (engine, sentences, sampling), as the JAX factory
     builds them, on ``args.device`` (default: the card), weights drawn
@@ -84,14 +72,18 @@ def make_engine_factory(args):
     the mixed-bucket prompts (``staggered``, ``staggered_quant``, with
     ``_q8`` int8 weights and KV), or 64 prompts that repeat one system
     prompt of 3/4 of the bucket plus a unique suffix of 1 to bucket // 8
-    tokens (``staggered_shared``, with ``_pc`` the prefix cache)."""
+    tokens (``staggered_shared``, with ``_pc`` the prefix cache). The
+    ``_sd`` scenario decodes speculatively, ``--spec-k`` proposals a
+    round, self-drafted as in JAX: the draft is the target's first
+    pattern period, sharing its embeddings and head."""
     def factory(scenario: WorkloadScenario):
-        check_scenarios([scenario])
         decoder = scenario.mode == "decoder"
         shared = scenario.name.startswith("staggered_shared")
         cfg = get_config(args.arch if decoder else "gector-base",
                          smoke=args.smoke)
         params = init_params(cfg, args.seed, device=args.device)
+        sd = scenario.name.endswith("_sd")
+        draft = self_draft(cfg, params) if sd else None
         buckets = ((args.bucket // 2, args.bucket) if decoder
                    else (args.bucket,))
         quant = "int8" if scenario.name.endswith("_q8") else None
@@ -103,7 +95,8 @@ def make_engine_factory(args):
             prefill_chunk=max(args.bucket // 4, 8) if decoder else None,
             segment_width=args.segment_width,
             prefix_cache=scenario.name.endswith("_pc"),
-            weight_quant=quant, kv_quant=quant), device=args.device)
+            weight_quant=quant, kv_quant=quant, spec_decode=sd,
+            spec_k=args.spec_k), device=args.device, draft=draft)
         rng = np.random.default_rng(args.seed)
         if shared:
             sysprompt = rng.integers(0, cfg.vocab_size,
@@ -128,6 +121,20 @@ def make_engine_factory(args):
                     if decoder else None)
         return eng, sentences, sampling
     return factory
+
+
+def self_draft(cfg, params):
+    """JAX's self-draft: (draft_cfg, draft_params), the target's first
+    pattern period sharing its embeddings and head (views, no copy), so
+    no second checkpoint is needed and the vocabulary is the target's."""
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:1]
+    dparams = dict(params)
+    dparams["blocks"] = first(params["blocks"])
+    return (dataclasses.replace(cfg, name=f"{cfg.name}-draft",
+                                n_layers=len(cfg.pattern)), dparams)
 
 
 def build_scenarios(args) -> list:
@@ -234,6 +241,46 @@ def quant_cells(records) -> list:
     return out
 
 
+def spec_decode_cells(records) -> list:
+    """$/1M-requests and accept rate for the staggered_spec A/B pair, per
+    profile: the accept rate is the record's engine window's
+    ``spec_accepted`` over ``spec_proposed``, summed over lanes. JAX's
+    pricer, field for field."""
+    by_key = {}
+    for rec in records:
+        d = rec.to_dict() if hasattr(rec, "to_dict") else rec
+        name = d["scenario"]["name"]
+        if not name.startswith("staggered_spec"):
+            continue
+        prof, cell = d["profile"], d["cells"][0]
+        rps = cell["requests_per_s"]
+        lanes = d["engine_window"].get("lanes", {})
+        prop = sum(s.get("spec_proposed", 0) for s in lanes.values())
+        acc = sum(s.get("spec_accepted", 0) for s in lanes.values())
+        by_key.setdefault(f"{prof['provider']}/{prof['machine']}", {})[
+            "sd" if name.endswith("_sd") else "off"] = {
+                "usd_per_1m_requests": _usd_per_1m(prof, rps),
+                "requests_per_s": rps,
+                "tokens_per_s": cell["tokens_per_s"],
+                "accept_rate": acc / prop if prop else 0.0}
+    out = []
+    for key, pair in sorted(by_key.items()):
+        if "off" not in pair or "sd" not in pair:
+            continue
+        off, sd = pair["off"], pair["sd"]
+        out.append({
+            "profile": key,
+            "usd_per_1m_requests_off": off["usd_per_1m_requests"],
+            "usd_per_1m_requests_sd": sd["usd_per_1m_requests"],
+            "usd_drop_pct": 100.0 * (1 - sd["usd_per_1m_requests"]
+                                     / max(off["usd_per_1m_requests"],
+                                           1e-12)),
+            "tokens_per_s_off": off["tokens_per_s"],
+            "tokens_per_s_sd": sd["tokens_per_s"],
+            "accept_rate": sd["accept_rate"]})
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description=__doc__,
@@ -261,7 +308,12 @@ def main(argv=None) -> None:
                          "the per-profile footprint + $/1M-requests delta")
     ap.add_argument("--spec-decode", action="store_true",
                     help="add the speculative-decoding staggered A/B pair "
-                         "(not ported: raises, ROADMAP Queue 1 item 10)")
+                         "(draft-and-verify vs plain decode) and report "
+                         "the per-profile $/1M-requests delta plus the "
+                         "measured accept rate")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per verify round for the "
+                         "--spec-decode pair")
     ap.add_argument("--arch", default="qwen2-0.5b", choices=DECODER_ARCHS,
                     help="decoder arch of the decoder scenarios")
     ap.add_argument("--requests", type=int, default=8)
@@ -294,7 +346,6 @@ def main(argv=None) -> None:
     profiles = ([profile_by_key(k) for k in args.profiles]
                 if args.profiles else list(default_profiles))
     scenarios = build_scenarios(args)
-    check_scenarios(scenarios)          # before any engine is built
 
     os.makedirs(args.out_dir, exist_ok=True)
     grid_path = os.path.join(args.out_dir, GRID_FILE)
@@ -312,6 +363,8 @@ def main(argv=None) -> None:
         report["prefix_cache"] = prefix_cache_cells(records)
     if args.quant:
         report["quant"] = quant_cells(records)
+    if args.spec_decode:
+        report["spec_decode"] = spec_decode_cells(records)
     write_report(report, drift_path)
     print(f"[out] {grid_path} ({len(records)} records)")
     print(f"[out] {drift_path}")
@@ -331,6 +384,14 @@ def main(argv=None) -> None:
               f"{cell['footprint_bytes_off']} -> "
               f"{cell['footprint_bytes_q8']} bytes "
               f"({cell['footprint_ratio']:.2f}x smaller)")
+    for cell in report.get("spec_decode", []):
+        print(f"spec-decode {cell['profile']}: "
+              f"${cell['usd_per_1m_requests_off']:.2f} -> "
+              f"${cell['usd_per_1m_requests_sd']:.2f} per 1M requests "
+              f"({cell['usd_drop_pct']:+.1f}%), "
+              f"{cell['tokens_per_s_off']:.1f} -> "
+              f"{cell['tokens_per_s_sd']:.1f} tok/s, accept rate "
+              f"{cell['accept_rate']:.2f}")
 
 
 if __name__ == "__main__":

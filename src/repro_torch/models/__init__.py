@@ -5,4 +5,5 @@ from repro_torch.models.transformer import (decode_loop,  # noqa: F401
                                             decode_segment, decode_step,
                                             forward, init_params,
                                             make_caches, prefill,
-                                            prefill_chunk, sample_logits)
+                                            prefill_chunk, sample_logits,
+                                            spec_round, verify_chunk)

@@ -3,9 +3,10 @@
 Port of ``repro/models/attention.py`` for the split q/k/v layout. Weights
 keep the JAX layout: ``wq``/``wk``/``wv`` as (d, h, hd), ``wo`` as
 (h, hd, d), biases ``bq``/``bk``/``bv`` as (h, hd). Full-sequence
-attention goes through ``ops.mha_prefill`` (K1) and single-step decode
-through ``ops.gqa_decode`` (K2): the CUDA kernels on a CUDA tensor, their
-plain versions on a CPU one. ``naive_attention`` is the plain path the JAX
+attention goes through ``ops.mha_prefill`` (K1), and single-step decode
+and a speculative verify chunk through ``ops.gqa_decode`` (K2, one query
+a row or spec_k + 1): the CUDA kernels on a CUDA tensor, their plain
+versions on a CPU one. ``naive_attention`` is the plain path the JAX
 models run, kept as the model-level reference (``plain_attention=True``),
 and the attention of a prefill chunk over the cache, which no TPU kernel
 covers in either package.
@@ -251,3 +252,67 @@ def attn_prefill_chunk(cfg, p, x, positions, cache, *, window=None,
     cache["len"] += S
     return qeinsum("bshk,hkd->bsd", out, p["wo"],
                    plain_matmul=plain_matmul), cache
+
+
+def per_row(fn, x):
+    """``fn`` applied to each position of x (B, S, ...) alone, as a
+    contiguous (B, 1, ...) tensor, the results joined on axis 1: each
+    product then runs at a decode step's shapes (M = B rows), whose bits
+    a row keeps whatever S is. On the card a matmul's bits follow its M
+    (cuBLAS and K3 pick other kernels at other M), so a verify chunk's
+    row-wise work runs this way."""
+    if x.shape[1] == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, s:s + 1].contiguous())
+                      for s in range(x.shape[1])], 1)
+
+
+def attn_verify_chunk(cfg, p, x, positions, cache, *, window=None,
+                      plain_attention=False, plain_matmul=False,
+                      partition=None):
+    """Speculative-verify chunk (JAX's ``attn_verify_chunk``): score S
+    candidate tokens in one call, with the bits of S ``attn_decode``
+    steps. x: (B, S, d); positions: (B, S) absolute. Returns (out,
+    cache).
+
+    As in JAX the chunk's K/V (quantized, with their scale planes, in an
+    int8 cache) are written at ``positions % L`` first, in place, and
+    ``len`` grows by S; then every query attends over the read-back ring:
+    future positions of the chunk are causally masked and slots at or
+    past a row's frontier hold the pos = -1 sentinel (the scheduler's
+    rollback), so each query sees a decode step's live set. The
+    attention is K2 with S queries a row: a float ring goes in raw (K2
+    rounds it to q's type on load), an int8 ring dequantized whole, as
+    ``attn_decode`` does, at K2's split ``partition`` (the engine's
+    ``ops.decode_partition`` of the plain engine's ring, which a decode
+    step there takes; default the kernel's own). The projections run per
+    position (``per_row``) at a decode step's M. ``plain_attention``
+    reads the ring back in q's type and runs ``naive_attention``, as the
+    JAX model does. Requires S < L (the engine sizes the ring with
+    ``spec_k`` slots of headroom: no wrap)."""
+    B, S, _ = x.shape
+    q, k, v = (torch.cat(t, 1) for t in zip(*(
+        _project_qkv(cfg, p, x[:, s:s + 1].contiguous(),
+                     positions[:, s:s + 1], None, plain_matmul)
+        for s in range(S))))
+    L = cache["k"].shape[1]
+    slots = positions.long() % L
+    bidx = torch.arange(B, device=x.device)[:, None]
+    for key, val in _kv_payload(cache, k, v).items():
+        cache[key][bidx, slots] = val
+    cache["pos"][bidx, slots] = positions.to(cache["pos"].dtype)
+    cache["len"] += S
+    softcap = cfg.attn.logit_softcap
+    if plain_attention or "k_scale" in cache:
+        rk, rv = _cache_read_kv(cache, q.dtype)
+    else:                         # K2 rounds a float cache to q's type
+        rk, rv = cache["k"], cache["v"]
+    if plain_attention:
+        out = naive_attention(q, rk, rv, positions, cache["pos"],
+                              causal=True, window=window, softcap=softcap)
+    else:
+        out = ops.gqa_decode(q, rk, rv, positions, cache["pos"],
+                             window=window, softcap=softcap,
+                             partition=partition)
+    return per_row(lambda o: qeinsum("bshk,hkd->bsd", o, p["wo"],
+                                     plain_matmul=plain_matmul), out), cache

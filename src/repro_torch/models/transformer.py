@@ -116,7 +116,8 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
-                 plain_attention, plain_matmul, rope, decode_width=None):
+                 plain_attention, plain_matmul, rope, decode_width=None,
+                 partition=None):
     if kind == "rglru":
         if mode == "decode":
             delta, _ = rglru_mod.rglru_step(cfg, p["rglru"], x, cache)
@@ -127,6 +128,16 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
         h = apply_norm(cfg, p["norm2"], x)
         return x + mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
     window = cfg.attn.window if kind == "attn_local" else None
+    if mode == "verify":          # row-wise work at a decode step's M
+        h = attn_mod.per_row(lambda t: apply_norm(cfg, p["norm1"], t), x)
+        a, _ = attn_mod.attn_verify_chunk(
+            cfg, p["attn"], h, positions, cache, window=window,
+            plain_attention=plain_attention, plain_matmul=plain_matmul,
+            partition=partition)
+        x = x + a
+        return x + attn_mod.per_row(
+            lambda t: mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], t),
+                                plain_matmul=plain_matmul), x)
     h = apply_norm(cfg, p["norm1"], x)
     if mode == "decode":
         a, _ = attn_mod.attn_decode(cfg, p["attn"], h, positions, cache,
@@ -153,7 +164,7 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             caches=None, mode: str = "full", causal: bool = True,
             return_hidden: bool = False, plain_attention: bool = False,
             plain_matmul: bool = False, head_w=None,
-            decode_width: int | None = None):
+            decode_width: int | None = None, partition=None):
     """Run the model. tokens: (B, S) int; positions: (B, S), default
     0..S-1.
 
@@ -162,7 +173,9 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     ``mode="decode"`` runs one step per row at ``positions`` (B, 1)
     against ``caches``; ``mode="chunk"`` runs a prefill chunk at
     ``positions`` (B, S) over ``caches`` and extends them (see
-    ``prefill_chunk``). Caches are updated in place. Returns hidden
+    ``prefill_chunk``); ``mode="verify"`` scores S candidate tokens at
+    ``positions`` (B, S) with the bits of S decode steps (see
+    ``verify_chunk``). Caches are updated in place. Returns hidden
     states (B, S, d_model) in the model dtype with ``return_hidden``, else
     fp32 logits (B, S, padded_vocab); ``head_w`` is ``head_weight``'s
     matrix when the caller cast it once. ``plain_attention`` swaps the
@@ -170,16 +183,18 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     ``naive_attention`` and K5 for the plain scan; ``plain_matmul`` swaps
     K3 for its plain version (the reference path). ``decode_width``
     (decode mode) is the batch width K2's split count is chosen for,
-    default the batch's own: see ``attn_decode``. Parameters may be
+    default the batch's own: see ``attn_decode``; ``partition`` (verify
+    mode) K2's (n_split, per_split), default the kernel's own: see
+    ``ops.gqa_decode``. Parameters may be
     ``quantize_params``' tree: its int8 projections go through K3. With
     ``cfg.embed_scale`` the embedding is scaled by sqrt(d_model), rounded
     to the model dtype, as JAX does for the Gemma family."""
-    if mode == "verify":
-        raise NotImplementedError(
-            "mode='verify': speculative verify is ROADMAP Queue 1 item 10")
-    if mode not in ("full", "decode", "chunk"):
-        raise ValueError(f"mode must be 'full', 'decode' or 'chunk', got "
-                         f"{mode!r}")
+    if mode not in ("full", "decode", "chunk", "verify"):
+        raise ValueError(f"mode must be 'full', 'decode', 'chunk' or "
+                         f"'verify', got {mode!r}")
+    if mode == "verify" and any(k != "attn" for k in cfg.pattern):
+        raise ValueError(f"mode='verify' needs a pure global-attention "
+                         f"pattern (pattern={cfg.pattern!r})")
     if mode != "full" and (caches is None or positions is None):
         raise ValueError(f"mode={mode!r} needs caches and positions")
     _check_supported(cfg)
@@ -194,7 +209,7 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     if cfg.abs_pos and "pos_embed" in params:
         tbl = params["pos_embed"]["table"]
         x = x + tbl[positions % tbl.shape[0]].to(cfg.torch_dtype)
-    rope = (None if cfg.attn.rope_base is None else
+    rope = (None if cfg.attn.rope_base is None or mode == "verify" else
             rope_angles(positions, cfg.head_dim_, cfg.attn.rope_base))
     for j, kind in enumerate(cfg.pattern):     # JAX's order: see the top
         blk = params["blocks"][f"blk{j}"]
@@ -206,7 +221,15 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
                              cache, mode=mode, causal=causal,
                              plain_attention=plain_attention,
                              plain_matmul=plain_matmul, rope=rope,
-                             decode_width=decode_width)
+                             decode_width=decode_width, partition=partition)
+    if mode == "verify":
+        return attn_mod.per_row(lambda t: _final(cfg, params, t,
+                                                 return_hidden, head_w), x)
+    return _final(cfg, params, x, return_hidden, head_w)
+
+
+def _final(cfg, params, x, return_hidden, head_w):
+    """The final norm, then hidden states or the head's fp32 logits."""
     x = apply_norm(cfg, params["final_norm"], x)
     if return_hidden:
         return x
@@ -248,6 +271,81 @@ def decode_step(cfg, params, tokens, positions, caches, **kw):
     positions. Returns logits (B, 1, padded_vocab)."""
     return forward(cfg, params, tokens=tokens, positions=positions,
                    caches=caches, mode="decode", **kw)
+
+
+def verify_chunk(cfg, params, tokens, positions, caches, **kw):
+    """Score S candidate tokens in one call with the bits of S
+    ``decode_step`` calls (speculative decoding's verify core, JAX's
+    ``verify_chunk``). tokens/positions: (B, S). Each query attends
+    through K2 over the ring its chunk wrote first, and every row-wise
+    product runs per position at a decode step's M (``mode="verify"``
+    of ``forward``, whose ``partition`` it takes).
+    Returns logits (B, S, padded_vocab)."""
+    return forward(cfg, params, tokens=tokens, positions=positions,
+                   caches=caches, mode="verify", **kw)
+
+
+def spec_round(cfg, params, draft_cfg, draft_params, tokens, positions,
+               caches, draft_caches, *, k: int, temperature=None,
+               top_k=None, seed=None, head_w=None, draft_head_w=None,
+               decode_width=None, partition=None):
+    """One draft-and-verify round (JAX's ``spec_round``): propose ``k``
+    tokens with the draft model, then score them with one target
+    ``verify_chunk``.
+
+    tokens (B, 1): the last committed token per row; positions (B, 1):
+    its absolute position (its KV not yet written, the ``decode_segment``
+    convention). The draft runs k + 1 decode steps; the last one only
+    writes d_k's KV (its sample is discarded, so it skips the head), and
+    after a full accept the draft's frontier matches the target's. The
+    verify chunk covers [t_0, d_1..d_k] at positions p..p+k, and
+    ``verify[:, j]`` is the token the target selects at position p+j+1
+    by the same counter-based ``sample_logits`` as plain decode (the
+    rows' temperature, top_k and seed repeated, positions p+j+1), so the
+    committed stream (the leading agreements plus one target token) is
+    plain decoding's, greedy or sampled. ``partition`` fixes K2's split
+    partition in the verify chunk (``verify_chunk``), ``decode_width``
+    the draft's steps' split count. ``head_w`` / ``draft_head_w``: each
+    model's ``head_weight`` cast once.
+
+    Returns (drafts (B, k) int32, verify (B, k + 1) int32, caches,
+    draft_caches); both caches hold KV through position p + k, and each
+    row must be rolled back to its commit boundary
+    (``CachePool.scatter_rollback``) before the next round reads them."""
+    B = tokens.shape[0]
+    tok, pos = tokens.to(torch.int32), positions.to(torch.int32)
+    drafts = []
+    for _ in range(k):
+        logits = forward(draft_cfg, draft_params, tokens=tok, positions=pos,
+                         caches=draft_caches, mode="decode",
+                         head_w=draft_head_w, decode_width=decode_width)
+        nxt = sample_logits(logits[:, -1], temperature=temperature,
+                            top_k=top_k, seed=seed, positions=pos[:, 0] + 1)
+        drafts.append(nxt)
+        tok, pos = nxt[:, None], pos + 1
+    forward(draft_cfg, draft_params, tokens=tok, positions=pos,
+            caches=draft_caches, mode="decode", return_hidden=True,
+            decode_width=decode_width)
+    drafts = torch.stack(drafts, 1)                           # (B, k)
+    S = k + 1
+    chunk = torch.cat([tokens.to(torch.int32), drafts], 1)     # (B, S)
+    cpos = positions.to(torch.int32) + torch.arange(
+        S, dtype=torch.int32, device=tokens.device)
+    logits = forward(cfg, params, tokens=chunk, positions=cpos,
+                     caches=caches, mode="verify", head_w=head_w,
+                     partition=partition)
+    flat = logits.reshape(B * S, logits.shape[-1])
+    if temperature is None:
+        verify = sample_logits(flat)
+    else:
+        # row-major repeats keep each (seed, position) pair a decode
+        # step's, so a sampled row draws what plain decoding draws
+        verify = sample_logits(
+            flat, temperature=temperature.repeat_interleave(S),
+            top_k=top_k.repeat_interleave(S),
+            seed=seed.repeat_interleave(S),
+            positions=(cpos + 1).reshape(-1))
+    return drafts, verify.reshape(B, S), caches, draft_caches
 
 
 def sample_logits(logits, *, temperature=None, top_k=None, seed=None,

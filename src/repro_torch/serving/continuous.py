@@ -1,7 +1,6 @@
 """Multi-lane step-driven continuous-batching scheduler.
 
-Port of ``repro/serving/continuous.py`` without speculative decoding
-(ROADMAP Queue 1 item 10): its entry points raise naming the item.
+Port of ``repro/serving/continuous.py``.
 
 Each pad bucket gets its own **lane**: a ``CachePool``-backed slot batch
 with per-slot decode state and a per-lane pending queue
@@ -39,6 +38,18 @@ program per (bucket, width, sampled) (``engine._segment_fn``), captured
 as a CUDA graph on the card. Per-segment occupancy lands in
 ``engine.batch_sizes``, and per-lane counters and the ``tier_hist`` of
 segment widths in ``engine.metrics()['lanes']``.
+
+**Speculative decoding** (``EngineConfig.spec_decode``): every turn of a
+lane with live rows is one draft-and-verify round in place of a segment
+(``engine._spec_round_fn``, always on the compacted view at the
+occupancy's tier width): the draft model proposes ``spec_k`` tokens a
+row, the target scores them in one verify chunk, and the host commits
+each row's leading agreements plus one target token, clamped to its
+budget and cut at its eos; then both pools are rolled back to each row's
+commit boundary (``engine._rollback_fn``). Every admitted row also gets
+its prompt prefilled into the draft's pool (``_draft_prefill``), whatever
+path admitted it. The committed streams are plain decoding's, bit for
+bit: verify scores each position with a decode step's bits.
 """
 from __future__ import annotations
 
@@ -194,7 +205,10 @@ class ContinuousScheduler:
         if lane.fills:
             self._fill_chunk(lane)
         if lane.rows:
-            self._segment(lane)
+            if self.eng.ec.spec_decode:
+                self._spec_round(lane)
+            else:
+                self._segment(lane)
 
     # --------------------------------------------------------- admission
     def _admit(self) -> None:  # holds: worker
@@ -307,6 +321,8 @@ class ContinuousScheduler:
             eng._sampling_arrays(claimed)
         sargs = (temp, topk, seed) if any_sample else (None, None, None)
         first = eng._prefill_call(bucket, toks, lens, slots, *sargs)
+        if eng.ec.spec_decode:
+            self._draft_prefill(lane, claimed, slots)
         for s, n in zip(slots, lens):
             pool.lengths[s] = int(n) + 1
         with eng._samples_lock:
@@ -384,6 +400,8 @@ class ContinuousScheduler:
         finally:
             for _, e in claimed:
                 store.release(e)
+        if eng.ec.spec_decode:
+            self._draft_prefill(lane, reqs, slots)
         for s, r in zip(slots, reqs):
             pool.lengths[s] = len(r.tokens) + 1
         with eng._samples_lock:
@@ -535,9 +553,21 @@ class ContinuousScheduler:
         t1 = time.perf_counter()
         # one copy installs every completed prompt into its lane slot
         pool = lane.pool
-        kvcache._load_slots(pool.caches, staging.caches,
-                            pool._idx([f.slot for _, f in done]),
-                            staging._idx([f.stg for _, f in done]))
+        dst = pool._idx([f.slot for _, f in done])
+        src = staging._idx([f.stg for _, f in done])
+        with torch.inference_mode():
+            if eng.ec.spec_decode:
+                # cut at the prompt: the last chunk's padded tail holds
+                # valid positions past it (see engine._prefill_fn)
+                kvcache._scatter_rollback(
+                    pool.caches, kvcache._take_slots(staging.caches, src),
+                    dst, torch.as_tensor([f.filled for _, f in done],
+                                         dtype=torch.int32,
+                                         device=pool.device))
+                self._draft_prefill(lane, [f.req for _, f in done],
+                                    [f.slot for _, f in done])
+            else:
+                kvcache._load_slots(pool.caches, staging.caches, dst, src)
         for i, f in done:
             pool.lengths[f.slot] = f.filled + 1
             lane.fills.remove(f)
@@ -548,14 +578,86 @@ class ContinuousScheduler:
                             budget=f.budget, eos=f.eos, temp=f.temp,
                             topk=f.topk, seed=f.seed, now=t1)
 
-    # ------------------------------------------------ not ported: item 10
+    # ------------------------------------------------- speculative rounds
     def _draft_prefill(self, lane: _Lane, reqs, slots) -> None:  # holds: worker
-        raise NotImplementedError(
-            "speculative decoding is ROADMAP Queue 1 item 10")
+        """Whole-prompt prefill of the draft model's KV for newly admitted
+        rows, into the draft pool at the rows' lane slot indices, whichever
+        path (whole, prefix hit, chunked fill) admitted them on the target
+        side: prompts fit the bucket, and the draft has no prefix store.
+        The draft pool keeps no slot bookkeeping: a slot's liveness is
+        the lane pool's."""
+        B, bucket = len(reqs), lane.bucket
+        toks = np.zeros((B, bucket), np.int64)
+        lens = np.zeros(B, np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, :len(r.tokens)] = r.tokens
+            lens[i] = len(r.tokens)
+        self.eng._draft_prefill_call(bucket, toks, lens, list(slots))
 
     def _spec_round(self, lane: _Lane) -> None:  # holds: worker
-        raise NotImplementedError(
-            "speculative decoding is ROADMAP Queue 1 item 10")
+        """One draft-and-verify round for a lane's live rows, in place of
+        ``_segment``: always the compacted path at the occupancy's tier
+        width ('fixed' pins the ladder to ``max_batch``), so slots outside
+        the live set stay bitwise untouched. Per-row commit counts
+        (1..spec_k + 1) move the rows' positions apart, and the rollback
+        restores, in both pools, the empty sentinel at and past each row's
+        frontier before the next round reads it. The rows are scattered
+        back before any retires: a released slot must not be written
+        afterwards."""
+        eng = self.eng
+        k = eng.ec.spec_k
+        slots = sorted(lane.rows)         # deterministic gather order
+        occ = len(slots)
+        width = pick_tier(occ, eng._tiers)
+        idx = slots + [slots[0]] * (width - occ)
+        drafts, verify = eng._spec_round_call(
+            lane.bucket, width, lane.last_tok[idx][:, None],
+            lane.pos[idx][:, None], idx, *self._sampling(lane, idx, slots))
+        drafts, verify = drafts[:occ], verify[:occ]
+        now = time.perf_counter()
+        bounds = np.zeros(occ, np.int32)
+        retire, accepted = [], 0
+        for j, s in enumerate(slots):
+            row = lane.rows[s]
+            a = 0                  # leading draft tokens the target agreed on
+            while a < k and drafts[j, a] == verify[j, a]:
+                a += 1
+            accepted += a
+            # the agreements plus one target token (the correction at the
+            # first disagreement, or the bonus after a full accept),
+            # clamped to the budget and cut at eos
+            committed = verify[j, :min(a + 1, int(lane.budget[s]))].tolist()
+            eos, eos_hit = int(lane.eos[s]), False
+            if eos >= 0 and eos in committed:
+                committed = committed[:committed.index(eos) + 1]
+                eos_hit = True
+            c = len(committed)
+            bounds[j] = int(lane.pos[s]) + c
+            lane.last_tok[s] = committed[-1]
+            lane.pos[s] = bounds[j]
+            lane.budget[s] -= c
+            row.toks.extend(committed)
+            row.req.handle._push(committed)
+            lane.pool.lengths[s] = int(bounds[j]) + 1
+            if eos_hit:
+                retire.append((row, FINISH_EOS))
+            elif lane.budget[s] <= 0:
+                retire.append((row, FINISH_LENGTH))
+            elif row.req.handle.cancel_requested:
+                retire.append((row, FINISH_CANCELLED))
+        with eng._samples_lock:
+            stat = eng._lane_stat(lane.bucket)
+            eng.batch_sizes.append(occ)
+            eng._stats["decode_segments"] += 1
+            stat["decode_segments"] += 1
+            stat["occupancy_sum"] += occ
+            stat["tier_hist"][width] += 1
+            stat["spec_rounds"] += 1
+            stat["spec_proposed"] += occ * k
+            stat["spec_accepted"] += accepted
+        eng._rollback_call(lane.bucket, width, slots, bounds.tolist())
+        for row, reason in retire:
+            self._finish(lane, row, reason, now)
 
     # ------------------------------------------------------ decode steps
     def _segment(self, lane: _Lane) -> None:  # holds: worker

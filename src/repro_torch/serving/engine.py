@@ -43,8 +43,12 @@ than one chunk chunk by chunk into a per-lane staging pool, one chunk per
 scheduler turn between decode segments, one captured program per (bucket,
 rows, chunk, sampled); ``prefix_cache`` keeps finished prompts' KV at
 chunk boundaries in a per-bucket ``PrefixStore`` and serves a hit by one
-chunk over the stored slot. Speculative decoding is not ported yet and
-raises.
+chunk over the stored slot. ``spec_decode`` serves with draft-and-verify
+rounds in place of decode segments (``draft=(draft_cfg, draft_params)``,
+``spec_k`` proposals a round), three captured programs more: the draft's
+whole-prompt prefill per (bucket, join size), the round per (bucket,
+width, sampled) and the per-row rollback of both pools per (bucket,
+width); its token streams are the plain engine's, bit for bit.
 """
 from __future__ import annotations
 
@@ -59,8 +63,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import (decode_segment, forward, make_caches,
-                                prefill_chunk, sample_logits)
+                                prefill_chunk, sample_logits, spec_round)
 from repro_torch.models.layers import head_weight, lm_head_apply
 from repro_torch.quant import (params_bytes, quantize_params,
                                validate_kv_quant)
@@ -90,9 +95,11 @@ class EngineConfig:
     longer than it) and ``prefix_cache`` (with ``prefix_cache_bytes``,
     which needs ``prefill_chunk`` and a pure global-attention model)
     shape it, with the JAX engine's configuration errors.
-    ``spec_decode`` is ROADMAP Queue 1 item 10 and raises on the
-    continuous path. ``weight_quant`` (None or "int8") serves both
-    modes; ``kv_quant`` (None or "int8") the decoder."""
+    ``spec_decode`` (with ``spec_k`` draft tokens a round, and the
+    engine's ``draft`` pair) runs draft-and-verify rounds on the
+    continuous path; each slot then carries ``spec_k`` positions of ring
+    headroom. ``weight_quant`` (None or "int8") serves both modes;
+    ``kv_quant`` (None or "int8") the decoder."""
     mode: str = "encoder"             # 'encoder' | 'decoder'
     max_batch: int = 32
     batch_window_ms: float = 2.0
@@ -182,9 +189,10 @@ def _continuous(ec: EngineConfig) -> bool:
             and ec.use_cache_pool)
 
 
-def _check_config(ec: EngineConfig, cfg) -> None:
-    """The JAX engine's configuration errors, then speculative decoding,
-    which is not ported yet."""
+def _check_config(ec: EngineConfig, cfg, draft_cfg=None,
+                  draft_params=None) -> None:
+    """The JAX engine's configuration errors, speculative decoding's
+    included."""
     if ec.mode not in ("encoder", "decoder"):
         raise ValueError(f"mode must be 'encoder' or 'decoder', got "
                          f"{ec.mode!r}")
@@ -232,13 +240,27 @@ def _check_config(ec: EngineConfig, cfg) -> None:
     if ec.spec_decode:
         if ec.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {ec.spec_k}")
-        raise NotImplementedError("spec_decode (speculative decoding) is "
-                                  "ROADMAP Queue 1 item 10")
+        if draft_cfg is None or draft_params is None:
+            raise ValueError("spec_decode requires draft=(draft_cfg, "
+                             "draft_params) at engine construction")
+        for role, c in (("target", cfg), ("draft", draft_cfg)):
+            if any(k != "attn" for k in c.pattern) or c.enc_layers:
+                raise ValueError(
+                    f"spec_decode requires a pure global-attention {role} "
+                    f"pattern: per-row KV rollback cannot rewind "
+                    f"sliding-window rings or recurrent state "
+                    f"(pattern={c.pattern!r})")
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size {draft_cfg.vocab_size} != target "
+                f"{cfg.vocab_size}: proposed ids must be scoreable by the "
+                f"target")
 
 
 class ServingEngine:
     def __init__(self, cfg, params, engine_cfg: EngineConfig,
-                 head_fn: Optional[HeadFn] = None, *, device=None):
+                 head_fn: Optional[HeadFn] = None, *, device=None,
+                 draft=None):
         """``params``: a model tree, or (encoder mode) a GECToR tree with
         the encoder under ``'encoder'``, moved to ``device`` (default: the
         card). ``head_fn(params, hidden, mask)`` — see
@@ -247,8 +269,12 @@ class ServingEngine:
         hidden states. Decoder requests resolve to their tokens. With
         ``weight_quant="int8"`` the tree is quantized on the device, once
         (``quantize_params``); otherwise the engine keeps the caller's
-        leaves."""
-        _check_config(engine_cfg, cfg)
+        leaves. ``draft`` is the ``(draft_cfg, draft_params)`` pair
+        speculative decoding proposes with (required iff ``spec_decode``
+        is on); its tree is moved to the device as it is, never
+        quantized, as in JAX."""
+        draft_cfg, draft_params = draft or (None, None)
+        _check_config(engine_cfg, cfg, draft_cfg, draft_params)
         if ((engine_cfg.weight_quant or engine_cfg.kv_quant)
                 and tuple(cfg.pattern) != ("attn",)):
             raise NotImplementedError(
@@ -263,6 +289,10 @@ class ServingEngine:
             self.params = quantize_params(self.params)
         self.ec = engine_cfg              # guarded-by: init
         self.head_fn = head_fn            # guarded-by: init
+        self.draft_cfg = draft_cfg        # guarded-by: init
+        self.draft_params = (             # guarded-by: init
+            None if draft_params is None else
+            _tree_map(lambda t: t.to(self.device), draft_params))
         self._weight_bytes = params_bytes(self.params)   # guarded-by: init
         # the decoder's output matrix in the model dtype, cast once (a
         # captured program reads it in place)
@@ -270,10 +300,18 @@ class ServingEngine:
             head_weight(cfg, self.params.get("lm_head"),
                         self.params["embed"])
             if engine_cfg.mode == "decoder" else None)
+        self._draft_head_w = (            # guarded-by: init
+            head_weight(draft_cfg, self.draft_params.get("lm_head"),
+                        self.draft_params["embed"])
+            if engine_cfg.spec_decode else None)
         # built by the worker (or by warmup before any traffic); clients
         # read only its capture count
         self._graphs = GraphCache(self.device)    # guarded-by: threadsafe
         self._pools = {}                  # guarded-by: worker — bucket -> CachePool
+        self._draft_pools = {}            # guarded-by: worker — bucket -> draft CachePool
+        # (bucket, width) -> the round's (target, draft) views, which the
+        # rollback program reads after the host's accept loop
+        self._spec_views = {}             # guarded-by: worker
         self._prefix_stores = {}          # guarded-by: worker — bucket -> PrefixStore
         self.continuous_active = _continuous(engine_cfg)  # guarded-by: init
         # the width ladder compacted segments may run at; 'fixed'
@@ -469,7 +507,9 @@ class ServingEngine:
         the bucket's pool and without request samples; with
         ``prefill_chunk`` also the chunk program per fill count (buckets
         longer than the chunk), and with ``prefix_cache`` the hit program
-        per hit count. It must run before serving traffic.
+        per hit count. Under ``spec_decode`` the segments give way to the
+        draft's prefill per join size, a round per occupancy's tier width
+        and its rollback. It must run before serving traffic.
         ``sampled=True`` also primes the temperature > 0 variant of every
         continuous program.
         ``metrics()["jit_compiles"]`` counts the programs built and
@@ -493,8 +533,10 @@ class ServingEngine:
         (over the prefix store), the full-width segment, and one
         compacted segment per occupancy in ``sizes`` whose tier is below
         ``max_batch``; with ``sampled`` each again with temperature > 0
-        arrays. The lane pools, staging pools and prefix stores are
-        created here too."""
+        arrays; under ``spec_decode`` the draft's prefill per join size and
+        a round and its rollback per occupancy in place of the segments.
+        The lane pools, draft pools, staging pools, prefix stores and the
+        rounds' views are created here too."""
         with self._samples_lock:
             served = bool(self.latencies)
         if (served or not self._q.empty()
@@ -510,6 +552,7 @@ class ServingEngine:
             return out
 
         chunk = self.ec.prefill_chunk
+        spec = self.ec.spec_decode
         for bucket in buckets:
             pool = self._get_pool(bucket)
             staging = (self._scheduler.lanes[bucket].get_staging(self)
@@ -538,6 +581,22 @@ class ServingEngine:
                                              *sargs)
                             staging.release_many(stg)
                     pool.release_many(slots)
+                if spec:
+                    self._draft_prefill_call(
+                        bucket, np.zeros((b, bucket), np.int64),
+                        np.full(b, min(4, bucket), np.int32), list(range(b)))
+            if spec:
+                # rounds run at the occupancy's tier width, even 'fixed'
+                # (its one tier is max_batch), and never a segment
+                for width in sorted({pick_tier(occ, self._tiers)
+                                     for occ in sizes}):
+                    idle = self._idle_rows(width)
+                    for sargs in svariants(width):
+                        self._spec_round_call(bucket, width, idle[0],
+                                              idle[1], [0] * width, *sargs)
+                    self._rollback_call(bucket, width, list(range(width)),
+                                        [1] * width)
+                continue
             for sargs in svariants(n):
                 self._segment_call(bucket, n, self._idle_rows(n), *sargs)
             for occ in sizes:
@@ -691,8 +750,28 @@ class ServingEngine:
         return fn
 
     def _slot_len(self, bucket: int) -> int:
-        """KV length of the bucket's caches and pool slots."""
-        return bucket + self.ec.max_new_tokens
+        """KV length of the bucket's caches and pool slots. A speculative
+        round writes a verify chunk of ``spec_k + 1`` positions from a
+        row's frontier, so a row one token short of its budget reaches
+        position ``bucket + max_new_tokens - 1 + spec_k``: the slots carry
+        ``spec_k`` positions of headroom, rolled back and never
+        committed, as in JAX."""
+        return (bucket + self.ec.max_new_tokens
+                + (self.ec.spec_k if self.ec.spec_decode else 0))
+
+    def _get_draft_pool(self, bucket: int) -> CachePool:  # holds: worker
+        """The bucket's draft-model KV pool: slot i mirrors lane slot i
+        (same indices, same ring length), but the pool keeps no slot
+        bookkeeping of its own (the lane pool's is the truth). Its KV
+        stays float under ``kv_quant``, as in JAX: the draft's logits
+        only propose."""
+        pool = self._draft_pools.get(bucket)
+        if pool is None:
+            pool = CachePool(self.draft_cfg, self.ec.max_batch,
+                             self._slot_len(bucket), dtype=torch.float32,
+                             device=self.device)
+            self._draft_pools[bucket] = pool
+        return pool
 
     def _get_pool(self, bucket: int) -> CachePool:  # holds: worker
         pool = self._pools.get(bucket)
@@ -787,8 +866,13 @@ class ServingEngine:
         join's slots ``idx``, prefill them, select each row's first token,
         write the join's ``n`` slots back; rows past ``n`` are padding
         (``PREFILL_MIN_M``) naming the first slot, never written back.
-        Captured per (join size, bucket, sampled)."""
+        Under ``spec_decode`` the write-back truncates each row at its
+        prompt (``_scatter_rollback``), as JAX's spec install does: the
+        padded tail holds valid positions, and a verify chunk needs the
+        empty sentinel past a row's frontier. Captured per (join size,
+        bucket, sampled)."""
         pool = self._get_pool(bucket)
+        spec = self.ec.spec_decode
 
         def fn(toks, lens, idx, temp, topk, seed):
             caches, view = kvcache._reset_and_view(pool.caches,
@@ -796,7 +880,10 @@ class ServingEngine:
             hid = forward(self.cfg, self.params, tokens=toks, caches=view,
                           mode="full", return_hidden=True)
             tok = self._first_token(hid, lens, temp, topk, seed)
-            kvcache._scatter_prefix(caches, view, idx[:n])
+            if spec:
+                kvcache._scatter_rollback(caches, view, idx[:n], lens[:n])
+            else:
+                kvcache._scatter_prefix(caches, view, idx[:n])
             return tok[:n]
         return fn
 
@@ -812,7 +899,8 @@ class ServingEngine:
                            np.asarray(slots, np.int64), temp, topk, seed))
             return first.cpu().numpy()
 
-    def _chunk_fn(self, src: CachePool, dst: CachePool):  # holds: worker
+    def _chunk_fn(self, src: CachePool, dst: CachePool,  # holds: worker
+                  truncate: bool = False):
         """One prefill chunk (JAX's ``_chunk_fn`` with the view and the
         write-back around it): gather slots ``src_idx`` of ``src``, run
         ``prefill_chunk`` at positions ``start + 0..C-1`` over them, take
@@ -822,7 +910,9 @@ class ServingEngine:
         prefix hit's reads the store's slot and writes the lane's. The
         rows past the real ones are padding (``PREFILL_MIN_M``): their
         indices name the first row's slots and ``rows`` makes them take
-        the first row, so the padding writes nothing of its own. Captured
+        the first row, so the padding writes nothing of its own. With
+        ``truncate`` (a hit under ``spec_decode``) each row is cut at its
+        prompt's end, ``start + nvalid`` (``_scatter_rollback``). Captured
         per (bucket, rows, chunk, sampled)."""
         def fn(toks, start, nvalid, src_idx, dst_idx, rows, temp, topk,
                seed):
@@ -833,7 +923,11 @@ class ServingEngine:
                                 view, return_hidden=True)
             tok = self._first_token(hid, nvalid, temp, topk, seed,
                                     positions=start + nvalid)
-            kvcache._scatter_prefix(dst.caches, view, dst_idx, rows)
+            if truncate:
+                kvcache._scatter_rollback(dst.caches, view, dst_idx,
+                                          start + nvalid, rows)
+            else:
+                kvcache._scatter_prefix(dst.caches, view, dst_idx, rows)
             return tok
         return fn
 
@@ -850,7 +944,8 @@ class ServingEngine:
         with torch.inference_mode():
             tok = self._graphs.run(
                 (kind, bucket, rows, C, temp is not None),
-                self._chunk_fn(src, dst),
+                self._chunk_fn(src, dst, truncate=kind == "cont_hit"
+                               and self.ec.spec_decode),
                 *_pad_rows(rows, toks, start, nvalid),
                 np.asarray(list(src_slots) + [src_slots[0]] * pad, np.int64),
                 np.asarray(list(dst_slots) + [dst_slots[0]] * pad, np.int64),
@@ -930,6 +1025,118 @@ class ServingEngine:
                  "budget": out[:, 2 * seg + 3],
                  "eos_hit": out[:, 2 * seg + 4].astype(bool)}
         return out[:, :seg], out[:, seg:2 * seg].astype(bool), state
+
+    # --------------------------------------------- speculative programs
+    def _draft_prefill_fn(self, bucket: int, n: int):  # holds: worker
+        """The draft's whole-prompt prefill into its pool (JAX's
+        ``_draft_prefill_fn`` with the reset, the gather and the
+        truncating write-back around it): reset and gather the draft
+        pool's slots ``idx``, run the prompts (no head: the round's first
+        draft step samples from the prompt's last position), and write
+        the ``n`` join rows back cut at their prompt's end ``lens``. Rows
+        past ``n`` are padding (``PREFILL_MIN_M``). Captured per (bucket,
+        join size)."""
+        dpool = self._get_draft_pool(bucket)
+
+        def fn(toks, lens, idx):
+            caches, view = kvcache._reset_and_view(dpool.caches,
+                                                   dpool._template, idx)
+            forward(self.draft_cfg, self.draft_params, tokens=toks,
+                    caches=view, mode="full", return_hidden=True)
+            kvcache._scatter_rollback(caches, view, idx[:n], lens[:n])
+        return fn
+
+    def _draft_prefill_call(self, bucket, toks, lens, slots) -> None:  # holds: worker
+        """Prefill the draft's KV of a join (its lane slot indices)."""
+        n = len(slots)
+        with torch.inference_mode():
+            self._graphs.run(
+                ("spec_dprefill", bucket, n),
+                self._draft_prefill_fn(bucket, n),
+                *_pad_rows(self._prefill_rows(n, bucket), toks, lens,
+                           np.asarray(slots, np.int64)))
+
+    def _spec_view(self, bucket: int, width: int):  # holds: worker
+        """The (target, draft) cache trees a round of ``width`` rows
+        gathers into and runs on, one pair per (bucket, width): they keep
+        their storage, so the round's programs (greedy and sampled) write
+        them and the rollback program reads them after the host's accept
+        loop."""
+        views = self._spec_views.get((bucket, width))
+        if views is None:
+            L = self._slot_len(bucket)
+            views = self._spec_views[(bucket, width)] = (
+                make_caches(self.cfg, width, L, dtype=torch.float32,
+                            kv_quant=self.ec.kv_quant, device=self.device),
+                make_caches(self.draft_cfg, width, L, dtype=torch.float32,
+                            device=self.device))
+        return views
+
+    def _spec_round_fn(self, bucket: int, width: int):  # holds: worker
+        """One draft-and-verify round (JAX's ``_spec_round_fn`` with the
+        gather in front): gather both pools' slots ``idx`` into the
+        (bucket, width) views, run ``spec_round`` on them (K2's partition
+        that of the plain engine's ring, ``bucket + max_new_tokens``
+        slots, at ``max_batch`` rows, so verify gives a decode step's
+        bits), and return the drafts and the verify tokens packed into
+        one int32 (width, 2 * spec_k + 1) tensor, copied to the host at
+        once. Captured per (bucket, width, sampled)."""
+        pool, dpool = self._get_pool(bucket), self._get_draft_pool(bucket)
+        view, dview = self._spec_view(bucket, width)
+        partition = ops.decode_partition(self.ec.max_batch,
+                                         self.cfg.n_kv_heads,
+                                         bucket + self.ec.max_new_tokens)
+
+        def fn(tok, pos, idx, temp, topk, seed):
+            kvcache._take_slots_into(view, pool.caches, idx)
+            kvcache._take_slots_into(dview, dpool.caches, idx)
+            drafts, verify, _, _ = spec_round(
+                self.cfg, self.params, self.draft_cfg, self.draft_params,
+                tok, pos, view, dview, k=self.ec.spec_k, temperature=temp,
+                top_k=topk, seed=seed, head_w=self._head_w,
+                draft_head_w=self._draft_head_w,
+                decode_width=self.ec.max_batch, partition=partition)
+            return torch.cat([drafts, verify], 1)
+        return fn
+
+    def _spec_round_call(self, bucket, width, tok, pos, idx, temp=None,  # holds: worker
+                         topk=None, seed=None):
+        """Run a round over ``width`` view rows gathered from slots
+        ``idx``; returns host arrays (drafts (width, k), verify (width,
+        k + 1))."""
+        k = self.ec.spec_k
+        with torch.inference_mode():
+            out = self._graphs.run(
+                ("spec_round", bucket, width, temp is not None),
+                self._spec_round_fn(bucket, width), tok, pos,
+                np.asarray(idx, np.int64), temp, topk, seed).cpu().numpy()
+        return out[:, :k], out[:, k:]
+
+    def _rollback_fn(self, bucket: int, width: int):  # holds: worker
+        """Scatter the round's (bucket, width) views back into both pools,
+        each row cut at its commit boundary (``_scatter_rollback``):
+        entry j of ``idx`` takes view row ``rows[j]`` and boundary
+        ``bounds[j]`` (padding entries repeat the first). Captured per
+        (bucket, width)."""
+        pool, dpool = self._get_pool(bucket), self._get_draft_pool(bucket)
+        view, dview = self._spec_view(bucket, width)
+
+        def fn(idx, rows, bounds):
+            kvcache._scatter_rollback(pool.caches, view, idx, bounds, rows)
+            kvcache._scatter_rollback(dpool.caches, dview, idx, bounds, rows)
+        return fn
+
+    def _rollback_call(self, bucket, width, slots, bounds) -> None:  # holds: worker
+        """Roll the live rows ``slots`` of a round back to ``bounds``."""
+        occ = len(slots)
+        pad = width - occ
+        with torch.inference_mode():
+            self._graphs.run(
+                ("spec_rollback", bucket, width), self._rollback_fn(bucket,
+                                                                   width),
+                np.asarray(list(slots) + [slots[0]] * pad, np.int64),
+                np.asarray(list(range(occ)) + [0] * pad, np.int64),
+                np.asarray(list(bounds) + [bounds[0]] * pad, np.int32))
 
     def _serve_batch(self, reqs: List[_Request]):  # holds: worker
         # claim each future (concurrent.futures protocol): a client-side
@@ -1019,8 +1226,8 @@ class ServingEngine:
 
     # ------------------------------------------------------------ metrics
     def _lane_stat(self, bucket: int) -> dict:  # holds: _samples_lock
-        """Per-lane counters, with JAX's keys (the speculative ones stay
-        0 until item 10)."""
+        """Per-lane counters, with JAX's keys (``spec_*`` count rounds,
+        proposed and accepted draft tokens)."""
         stat = self.lane_stats.get(bucket)
         if stat is None:
             stat = self.lane_stats[bucket] = {

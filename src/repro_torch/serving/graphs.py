@@ -34,10 +34,11 @@ CPU. The key is recorded all the same, so ``captures`` counts the
 programs the engine built on either device; the engine reports it as
 ``metrics()["jit_compiles"]``.
 
-The kernels' launch counters (``flash_attention.launches``, ...) count
-Python calls of their wrappers, and a replay makes none. So each graph
-keeps the launches its capture recorded: they are taken back off the
-counters at capture (nothing ran) and added again at every replay.
+The kernels' launch counters (``flash_attention.launches``, ...,
+and K2's ``decode_attention.verify_launches`` of its S > 1 launches)
+count Python calls of their wrappers, and a replay makes none. So each
+graph keeps the launches its capture recorded: they are taken back off
+the counters at capture (nothing ran) and added again at every replay.
 """
 from __future__ import annotations
 
@@ -53,13 +54,20 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int8_matmul import cache_matmul, int8_matmul
 from repro_torch.kernels.rglru_scan import rglru_scan
 
-# every wrapper that counts its launches (K1, K2, K3, K4, K5)
-KERNELS = (flash_attention, decode_attention, int8_matmul, cache_matmul,
-           rglru_scan)
+# every launch counter: (wrapper, attribute) of K1, K2, K2's S > 1
+# launches, K3, K4, K5
+COUNTERS = ((flash_attention, "launches"), (decode_attention, "launches"),
+            (decode_attention, "verify_launches"), (int8_matmul, "launches"),
+            (cache_matmul, "launches"), (rglru_scan, "launches"))
 
 
 def _launches():
-    return [k.launches for k in KERNELS]
+    return [getattr(fn, attr) for fn, attr in COUNTERS]
+
+
+def _add_launches(counts, sign=1):
+    for (fn, attr), n in zip(COUNTERS, counts):
+        setattr(fn, attr, getattr(fn, attr) + sign * n)
 
 
 _collector = {"holds": 0, "was_enabled": False}    # guarded-by: _collector_lock
@@ -140,8 +148,7 @@ class GraphCache:
                 buf.copy_(torch.as_tensor(a), non_blocking=False)
         g.graph.replay()
         self.replays += 1
-        for k, n in zip(KERNELS, g.launches):
-            k.launches += n
+        _add_launches(g.launches)
         return g.outputs
 
     def _warm_and_capture(self, key, fn, args):
@@ -167,7 +174,6 @@ class GraphCache:
                 graph, pool=self._pool, capture_error_mode="thread_local"):
             outputs = fn(*inputs)
         launches = [a - b for a, b in zip(_launches(), before)]
-        for k, n in zip(KERNELS, launches):
-            k.launches -= n
+        _add_launches(launches, -1)
         self._graphs[key] = _Graph(graph, inputs, outputs, launches)
         return out

@@ -1,8 +1,8 @@
 """KV-cache pool with request-slot management for continuous batching,
 and the prefix store.
 
-Port of ``repro/serving/kvcache.py`` without speculative decoding's
-rollback (ROADMAP Queue 1 item 10). The cache
+Port of ``repro/serving/kvcache.py``, speculative decoding's per-row
+rollback (``_scatter_rollback``) included. The cache
 tree is ``models.make_caches``' (per-pattern trees stacked over periods,
 slots on axis 1 of every leaf); the pool adds a fixed batch of slots,
 per-slot request ids and lengths, and reset-on-assign, so a finished
@@ -84,6 +84,15 @@ def _take_slots(caches, idx):
     return _map(lambda x: x.index_select(1, idx), caches)
 
 
+def _take_slots_into(view, caches, idx):
+    """``_take_slots`` into an existing view tree of ``len(idx)`` rows
+    (whose storage a captured program reads), in place."""
+    for b, blk in view.items():
+        for k, x in blk.items():
+            torch.index_select(caches[b][k], 1, idx, out=x)
+    return view
+
+
 def _scatter_prefix(caches, batch, idx, rows=None):
     """Scatter the first ``len(idx)`` rows of a (possibly wider) batch
     view back into pool slots ``idx``: the compacted decode segment's
@@ -98,6 +107,32 @@ def _scatter_prefix(caches, batch, idx, rows=None):
         for k, x in blk.items():
             src = batch[b][k]
             src = src[:, :n] if rows is None else src.index_select(1, rows)
+            x.index_copy_(1, idx, src)
+    return caches
+
+
+def _scatter_rollback(caches, batch, idx, boundary, rows=None):
+    """``_scatter_prefix`` truncating each written row's attention cache
+    to its own ``boundary`` (int32, as long as ``idx``): ``pos`` entries
+    >= the boundary become the -1 empty sentinel and ``len`` is clamped
+    to it; K/V payloads and scale planes land as they are. Speculative
+    decoding's accept/rollback: a round writes KV for every proposed
+    position, then each row keeps only its committed prefix, which
+    restores the invariant the write-first verify chunk relies on (every
+    slot at or past a row's frontier holds the sentinel). Slots outside
+    ``idx`` stay bitwise untouched; ``rows`` as in ``_scatter_prefix``
+    (a padding entry repeats the first slot, row and boundary). Only
+    sound for pure global-attention caches ({k, v[, scales], pos, len}
+    per block); the engine allows speculative decoding on those only."""
+    n = idx.shape[0]
+    for b, blk in caches.items():
+        for k, x in blk.items():
+            src = batch[b][k]
+            src = src[:, :n] if rows is None else src.index_select(1, rows)
+            if k == "pos":                       # (n_periods, n, L)
+                src = torch.where(src < boundary[None, :, None], src, -1)
+            elif k == "len":                     # (n_periods, n)
+                src = torch.minimum(src, boundary[None, :])
             x.index_copy_(1, idx, src)
     return caches
 
@@ -218,6 +253,22 @@ class CachePool:
         only the first ``len(slots)`` view rows land, so every other slot
         keeps its KV bitwise."""
         _scatter_prefix(self.caches, batch_caches, self._idx(slots))
+        if lengths is not None:
+            for s, n in zip(slots, lengths):
+                self.lengths[s] = int(n)
+
+    def scatter_rollback(self, slots: Sequence[int], batch_caches,
+                         boundaries: Sequence[int],
+                         lengths: Optional[Sequence[int]] = None) -> None:
+        """``scatter_back`` with a per-row truncate: row j of the view
+        lands in slot ``slots[j]`` with every cached position >=
+        ``boundaries[j]`` reset to the empty sentinel (and ``len``
+        clamped), see ``_scatter_rollback``; ``lengths`` as in
+        ``write_back``."""
+        _scatter_rollback(self.caches, batch_caches, self._idx(slots),
+                          torch.as_tensor(list(boundaries),
+                                          dtype=torch.int32,
+                                          device=self.device))
         if lengths is not None:
             for s, n in zip(slots, lengths):
                 self.lengths[s] = int(n)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.bridge import to_torch
 from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving import graphs
@@ -139,8 +140,8 @@ def test_graph_cache_replays_and_counts_launches(monkeypatch):
     """With the capture stubbed out (the test's stand-in for the card):
     the first call of a key captures once and returns the warm-up result;
     later calls copy their arguments into the static buffers, replay, add
-    the launches the capture recorded to the kernel counters, and return
-    the static outputs."""
+    the launches the capture recorded to the kernel counters (K2's verify
+    counter too), and return the static outputs."""
     gc = GraphCache("cuda")
     assert not gc.eager
     replays = []
@@ -157,11 +158,12 @@ def test_graph_cache_replays_and_counts_launches(monkeypatch):
         inputs = tuple(torch.as_tensor(a).clone() for a in args)
         out = fn(*inputs)
         self._graphs[key] = graphs._Graph(FakeGraph(fn, inputs, out.clone()),
-                                          inputs, None, [2, 0, 0, 0, 0])
+                                          inputs, None, [2, 0, 3, 0, 0, 0])
         self._graphs[key].outputs = self._graphs[key].graph.outputs
         return out
     monkeypatch.setattr(GraphCache, "_warm_and_capture", capture)
     before = flash_attention.launches
+    before_v = decode_attention.verify_launches
 
     def fn(a):
         return a + 1
@@ -173,9 +175,11 @@ def test_graph_cache_replays_and_counts_launches(monkeypatch):
                        torch.tensor([6, 7]))
     assert gc.captures == 1 and gc.replays == 1 and replays == [1]
     assert flash_attention.launches == before + 2
+    assert decode_attention.verify_launches == before_v + 3
     gc.run("y", fn, np.array([0]))
     assert gc.captures == 2
     flash_attention.launches = before
+    decode_attention.verify_launches = before_v
 
 
 def test_collector_paused_nests_and_restores():

@@ -370,6 +370,9 @@ def test_k2_bad_inputs_raise():
     with pytest.raises(ValueError, match="multiple"):
         decode_attention(q[:, :, :3], k, v, q_pos, kv_pos)
     with pytest.raises(ValueError, match="q must be"):
+        decode_attention(q[:, 0], k, v, q_pos, kv_pos)
+    # two queries a row (a verify chunk) need a position each
+    with pytest.raises(ValueError, match="q_pos"):
         decode_attention(q.expand(-1, 2, -1, -1), k, v, q_pos, kv_pos)
     with pytest.raises(ValueError, match="kv_pos"):
         decode_attention(q, k, v, q_pos, kv_pos[:, :5])
@@ -671,14 +674,22 @@ def test_decoder_gates_raise(weights):
     tok = torch.zeros((1, 1), dtype=torch.long)
     caches = make_caches(CFG, 1, 8, dtype=torch.float32, device="cpu")
     # chunk mode is ported (tests/test_torch_chunked.py holds it against
-    # JAX); verify still names its item
+    # JAX); so is verify, which gives a decode step's logits
+    # (tests/test_torch_spec.py holds it against JAX)
     out = forward(CFG, tp, tokens=tok, positions=tok.int(), caches=caches,
                   mode="chunk")
     assert tuple(out.shape[:2]) == (1, 1) and torch.isfinite(out).all()
     assert caches["blk0"]["len"].tolist() == [[1]] * CFG.n_periods
-    with pytest.raises(NotImplementedError, match="item 10"):
-        forward(CFG, tp, tokens=tok, positions=tok, caches=caches,
-                mode="verify")
+    step = make_caches(CFG, 1, 8, dtype=torch.float32, device="cpu")
+    forward(CFG, tp, tokens=tok, positions=tok.int(), caches=step,
+            mode="chunk")
+    nxt = torch.ones((1, 1), dtype=torch.long)
+    ver = forward(CFG, tp, tokens=nxt, positions=nxt.int(), caches=caches,
+                  mode="verify")
+    dec = forward(CFG, tp, tokens=nxt, positions=nxt.int(), caches=step,
+                  mode="decode")
+    assert torch.equal(ver, dec)
+    assert caches["blk0"]["len"].tolist() == [[2]] * CFG.n_periods
     with pytest.raises(ValueError, match="needs caches"):
         forward(CFG, tp, tokens=tok, mode="decode")
     q8 = ta.make_cache(CFG, 1, 8, quantized=True, device="cpu")

@@ -214,7 +214,7 @@ def test_warmup_serves_each_bucket_and_discard_drops_it(params):
      ValueError, "prefill_chunk=12 rounds bucket 32"),
     (dict(arch="recurrentgemma-9b", prefix_cache=True, prefill_chunk=8),
      ValueError, "pure global-attention pattern"),
-    (dict(spec_decode=True), NotImplementedError, "item 10"),
+    (dict(spec_decode=True), ValueError, "requires draft="),
     (dict(continuous=False, use_cache_pool=False, weight_quant="int4"),
      ValueError, "weight_quant must be None or 'int8'"),
     (dict(continuous=False, use_cache_pool=False, kv_quant="int4"),
@@ -225,11 +225,10 @@ def test_warmup_serves_each_bucket_and_discard_drops_it(params):
      ValueError, "continuous decoder path"),
 ])
 def test_decoder_config_gates_raise(params, kw, exc, match):
-    """Speculative decoding, not ported, names its ROADMAP item; the
-    others are the JAX engine's own errors: a chunk below 1, a chunk
-    whose round-up wraps the slot's ring, the prefix cache on the hybrid
+    """The JAX engine's own errors: a chunk below 1, a chunk whose
+    round-up wraps the slot's ring, the prefix cache on the hybrid
     (``arch``: the config to build, checked before the weights are
-    read)."""
+    read), speculative decoding without a draft model."""
     kw = dict(kw)
     cfg = get_config(kw.pop("arch"), smoke=True) if "arch" in kw else CFG
     with pytest.raises(exc, match=match):

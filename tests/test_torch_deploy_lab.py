@@ -367,29 +367,22 @@ def test_smoke_grid_writes_the_port_artifacts(jx, tmp_path):
     ("--staggered", ("staggered",)),
     ("--prefix-cache", ("staggered_shared", "staggered_shared_pc")),
     ("--quant", ("staggered_quant", "staggered_quant_q8")),
-    ("--spec-decode", None),
+    ("--spec-decode", ("staggered_spec", "staggered_spec_sd")),
 ])
 def test_decoder_scenarios_raise_naming_their_items(jx, tmp_path,
                                                      monkeypatch, flag,
                                                      names):
     """The decoder scenarios serve through the continuous decoder with
-    chunked prefill, the prefix cache and int8 W+KV, on the smoke grid:
-    the scenarios, engine configs and prompts are the ones JAX's CLI
-    builds for the same flags (its engine stubbed), every record has
-    JAX's fields and a compile-clean window, and the drift report's A/B
-    cells are what JAX's pricers make of the same records. The
-    speculative pair still raises naming item 10 only, before any engine
-    or file."""
+    chunked prefill, the prefix cache, int8 W+KV and speculative
+    decoding (self-drafted), on the smoke grid: the scenarios, engine
+    configs and prompts are the ones JAX's CLI builds for the same flags
+    (its engine stubbed), every record has JAX's fields and a
+    compile-clean window, the ``_sd`` window ran speculative rounds, and
+    the drift report's A/B cells are what JAX's pricers make of the same
+    records."""
     out = tmp_path / "out"
     argv = ["--smoke", "--device", "cpu", "--profiles", "AWS/C",
             "--requests", "3", flag, "--out-dir", str(out)]
-    if names is None:
-        with pytest.raises(NotImplementedError) as e:
-            experiment.main(argv)
-        assert "item 10" in str(e.value), str(e.value)
-        assert "item 7" not in str(e.value) and "item 8" not in str(e.value)
-        assert not out.exists()
-        return
     made = {}
     factory = experiment.make_engine_factory
 
@@ -418,7 +411,8 @@ def test_decoder_scenarios_raise_naming_their_items(jx, tmp_path,
     ns = argparse.Namespace(
         smoke=True, ladder=[1, 2], repeats=1, staggered=flag ==
         "--staggered", prefix_cache=flag == "--prefix-cache",
-        quant=flag == "--quant", spec_decode=False, spec_k=4,
+        quant=flag == "--quant", spec_decode=flag == "--spec-decode",
+        spec_k=4,
         arch="qwen2-0.5b", requests=3, gap=0.05, max_new_tokens=8,
         max_batch=4, max_inflight=None, bucket=32, segment_width="adaptive",
         seed=0)
@@ -447,10 +441,13 @@ def test_decoder_scenarios_raise_naming_their_items(jx, tmp_path,
         if sc.name.endswith("_pc"):
             assert sum(l["prefix_hits"] + l["prefix_misses"]
                        for l in lanes) == 3
+        assert (sum(l["spec_rounds"] for l in lanes) > 0) is \
+            sc.name.endswith("_sd")
     with open(out / experiment.DRIFT_FILE) as f:
         drift = json.load(f)
     for key, fn in (("prefix_cache", "prefix_cache_cells"),
-                    ("quant", "quant_cells")):
+                    ("quant", "quant_cells"),
+                    ("spec_decode", "spec_decode_cells")):
         if key not in drift:
             continue
         cells = getattr(experiment, fn)(rows)
@@ -459,6 +456,7 @@ def test_decoder_scenarios_raise_naming_their_items(jx, tmp_path,
             json.dumps(cells))
     assert ("prefix_cache" in drift) is (flag == "--prefix-cache")
     assert ("quant" in drift) is (flag == "--quant")
+    assert ("spec_decode" in drift) is (flag == "--spec-decode")
 
 
 # --------------------------------------------------- (i) engine summary

@@ -178,15 +178,28 @@ def test_close_fails_pending_futures(params):
 
 
 def test_unported_modes_raise(params):
-    """The continuous decoder serves with chunked prefill; its
-    speculative decoding (item 10) is not ported and raises naming the
-    item. Quantization is ported and takes the JAX engine's errors: a bad
-    weight_quant, and kv_quant outside decoder mode."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingEngine(CFG, params, EngineConfig(mode="decoder",
-                                                prefill_chunk=8,
-                                                spec_decode=True),
-                      device="cpu")
+    """The continuous decoder serves with chunked prefill and speculative
+    decoding: a spec engine with a draft builds and serves (its first
+    request's tokens are the plain engine's). Quantization is ported and
+    takes the JAX engine's errors: a bad weight_quant, and kv_quant
+    outside decoder mode."""
+    from repro_torch.models import init_params
+    dcfg = get_config("qwen2-0.5b", smoke=True)
+    dparams = init_params(dcfg, 0, device="cpu")
+    kw = dict(mode="decoder", prefill_chunk=8, pad_buckets=(16, 32),
+              max_batch=2, max_new_tokens=4)
+    prompt = np.arange(3, 14, dtype=np.int32)
+    spec = ServingEngine(dcfg, dparams, EngineConfig(spec_decode=True, **kw),
+                         device="cpu", draft=(dcfg, dparams))
+    plain = ServingEngine(dcfg, dparams, EngineConfig(**kw), device="cpu")
+    try:
+        got = spec.generate(prompt).result(timeout=300).tokens
+        want = plain.generate(prompt).result(timeout=300).tokens
+        assert spec.metrics()["lanes"][16]["spec_rounds"] > 0
+    finally:
+        spec.close()
+        plain.close()
+    np.testing.assert_array_equal(got, want)
     for kw, match in ((dict(weight_quant="int4"), "weight_quant"),
                       (dict(kv_quant="int8"), "requires mode='decoder'")):
         with pytest.raises(ValueError, match=match):
