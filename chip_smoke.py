@@ -196,6 +196,33 @@ Phases (each raises on failure; nothing is caught):
      counts against joins and rounds, a captured round against the same
      round uncaptured, the accept rate and tokens/s; (e) a captured
      round at width 1 and 16 beside phase 23's 4-step segments.
+ 28. (after phase 26) training: (a) K1's backward against its plain
+     version in phases 2 and 16's settings, fp32 and bf16 at every built
+     tile, visits from both sides against ``live_block_counts`` /
+     ``live_q_counts``, the forward's log-sum-exps against the plain
+     forward's (whose out and lse the plain backward takes), and the
+     forward's output with its log-sum-exps bit-equal to the output
+     without; (b) K5's backward against its plain version at phase 15's
+     shapes; (c) both timed by ``graph_ms`` beside their bounds, plain
+     versions and (K1) SDPA's backward, K1's at the encoder's shape and
+     at Qwen2-0.5B's training shape (B=8 S=512, causal); (d)
+     Qwen2-0.5B at full width in bf16: one batch's gradients through the
+     kernels and through plain attention against fp32 plain-attention
+     gradients (the kernels' errors within 1.5x plain's), then 20
+     ``train_step``s with remat on SyntheticLM, each launching K1 24
+     times forward, 24 in remat and 24 backward, the loss falling, step
+     wall, the profiled step's idle share, breakdown and peak memory
+     printed; (e) GECToR-base,
+     50 steps of ``gector_loss`` and AdamW at B=32 x 128 on GECCorpus
+     (12 K1 launches forward and 12 backward a step), the loss falling;
+     (f) RecurrentGemma-9B at full width with its pattern cut to one
+     (rglru, rglru, attn_local) triple (all 38 layers' params, grads and
+     fp32 moments do not fit one card): the gradient gate and one step
+     (K5 forward and backward, K1 at head dim 256); (g) (d)'s and (e)'s
+     trees saved and restored bit for bit, and the Qwen2 checkpoint
+     serving the tokens of the tree in memory; (h) printed only: the
+     spec bench's target and a one-layer draft trained 60 steps, their
+     accept rate through the spec engine beside the untrained pair's.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its design and
 its instantiations' registers), then as the last line
@@ -310,20 +337,25 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int = 1):
     return None
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 5, warmup: int = 3):
+def graph_ms(fn, iters: int = 20, replays: int = 5, warmup: int = 3,
+             stream=None):
     """The card's time for one call of ``fn`` with no host time between
     its kernels: ``iters`` calls captured in one CUDA graph, timed by
-    CUDA events around ``replays`` replays. K2's time in every row (its
-    trace, ``device_ms``, has lost one of K2's two launches in long runs;
-    where both read, they agreed within 5%)."""
-    side = torch.cuda.Stream()
+    CUDA events around ``replays`` replays. It never comes back empty.
+    K2's time in every row (its trace, ``device_ms``, has lost one of
+    K2's two launches in long runs; where both read, they agreed within
+    5%), and the backward kernels', their plain versions' and SDPA's
+    backward's. ``stream`` is the stream to warm up and capture on: where
+    ``fn`` runs autograd's backward, the one its forward ran on (autograd
+    runs a backward op on its forward's stream)."""
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -3817,6 +3849,649 @@ def phase_spec_engine(cfg, params, kernels, name, plain, *, quant=None):
     return launches, verify, readings
 
 
+# ------------------------------------------------------ 28. training
+TRAIN_SHAPE = dict(B=8, S=512)     # Qwen2-0.5B's training batch
+TRAIN_STEPS = 20
+GECTOR_TRAIN = dict(B=32, S=128, steps=50)
+HYBRID_TRAIN = dict(B=2, S=512)    # RecurrentGemma-9B, one pattern triple
+SPEC_TRAIN_STEPS = 60              # benchmarks/run.py bench_spec_decode
+# Against fp32 plain-attention gradients, the bf16 gradients through the
+# kernels may be at most this much further off than the bf16 gradients
+# through plain attention (the global relative error and the mean of the
+# leaves' relative errors), as phases 3 and 7 gate hidden states and
+# logits.
+GRAD_ERR_FACTOR = 1.5
+
+
+def bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, itemsize, causal=False):
+    """Least time for one attention backward: q, k, v, out, dout and the
+    fp32 lse read once and dq, dk, dv written once over HBM, or its five
+    products of the forward's size (S, dP, dV, dK, dQ) at the peak for the
+    inputs' type (the bf16 tensor cores, or fp32 outside them), whichever
+    is larger."""
+    nbytes = itemsize * D * (4 * B * Sq * Hq + 4 * B * Skv * Hkv) + \
+        4 * B * Hq * Sq
+    pairs = Sq * Skv if not causal else Sq * (Sq + 1) // 2
+    flops = 10 * B * Hq * pairs * D
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_bwd_bound_ms(B, S, W):
+    """Least time for one K5 backward: a, h and dh read once, da and db
+    written once (fp32), against its 3 flops an element."""
+    t_bytes = 5 * B * S * W * 4 / HBM_BYTES_PER_S
+    t_ops = 3 * B * S * W / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k1_bwd_parity(fa, settings, main):
+    """K1's backward against its plain version in each of ``settings``
+    (phases 2 and 16's) at the kernel's tiles: fp32 at the setting's bq
+    (32 where fp32 is not built for it), bf16 at every bq K1 is built
+    for, fp32 within FP32_TOL absolute and bf16 within BF16_TOL (absolute
+    and relative), as phase 2 holds the forward; the q-side visits equal
+    ``live_block_counts`` and the kv side's ``live_q_counts``, both the
+    plain version's; the forward's log-sum-exps within FP32_TOL of the
+    plain forward's; and the forward's output with the log-sum-exps
+    asked for bit-equal to the output without. The plain backward gets
+    the plain forward's out and lse, so that the two kernels together are
+    held against the two plain versions. Returns (the bf16 error of
+    ``main`` at its bq, settings checked)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    main_err, checked = None, 0
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for name, B, Sq, Skv, Hq, Hkv, D, bq0, kw in settings:
+            q = randn(gen, B, Sq, Hq, D, dtype=dtype)
+            k = randn(gen, B, Skv, Hkv, D, dtype=dtype)
+            v = randn(gen, B, Skv, Hkv, D, dtype=dtype)
+            do = randn(gen, B, Sq, Hq, D, dtype=dtype)
+            bqs, bk = fa.TILES[(dtype, D)]
+            fp32_bq = bq0 if bq0 in bqs else bqs[0]
+            for bq in (bqs if dtype == torch.bfloat16 else (fp32_bq,)):
+                no_lse_out = fa.flash_attention(q, k, v, bq=bq, **kw)
+                out, lse = fa.flash_attention(q, k, v, bq=bq,
+                                              return_lse=True, **kw)
+                got = fa.flash_attention_bwd(q, k, v, out, do, lse, bq=bq,
+                                             bk=bk, return_visits=True, **kw)
+                torch.cuda.synchronize()
+                p_out, _, p_lse = fa.flash_attention_plain(
+                    q, k, v, bq=bq, bk=bk, return_lse=True, **kw)
+                lse_err = (lse - p_lse).abs().max().item()
+                want = fa.flash_attention_bwd_plain(
+                    q.float(), k.float(), v.float(), p_out.float(),
+                    do.float(), p_lse, bq=bq, bk=bk, **kw)
+                errs = [(a.float() - b).abs().max().item()
+                        for a, b in zip(got[:3], want[:3])]
+                close = all(torch.allclose(
+                    a.float(), b, atol=tol,
+                    rtol=0.0 if dtype == torch.float32 else tol)
+                    for a, b in zip(got[:3], want[:3]))
+                geo = dict(causal=kw.get("causal", True),
+                           window=kw.get("window"), bq=bq, bk=bk,
+                           kv_len=kw.get("kv_len"))
+                want_q = torch.tensor(fa.live_block_counts(Sq, Skv, **geo),
+                                      dtype=torch.int32)
+                want_kv = torch.tensor(fa.live_q_counts(Sq, Skv, **geo),
+                                       dtype=torch.int32)
+                vis_ok = (bool((got[3].cpu() == want_q).all())
+                          and bool((got[4].cpu() == want_kv).all())
+                          and torch.equal(got[3], want[3])
+                          and torch.equal(got[4], want[4]))
+                bits = torch.equal(out, no_lse_out)
+                print(f"K1 bwd {name:28s} bq={bq:<3d} bk={bk:<3d} "
+                      f"{str(dtype):15s} dq/dk/dv max_abs_err "
+                      f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+                      f"{tol}), lse {lse_err:.3e} (tol {FP32_TOL}), visits "
+                      f"{'ok' if vis_ok else 'WRONG'}, out with lse "
+                      f"{'bit-equal' if bits else 'DIFFERS'}", flush=True)
+                if not (close and vis_ok and bits and lse_err <= FP32_TOL):
+                    raise AssertionError(f"K1's backward or its lse "
+                                         f"disagrees with the plain versions "
+                                         f"(or lse changed out): {name} "
+                                         f"{dtype} bq={bq}")
+                checked += 1
+                if name == main and dtype == torch.bfloat16 and bq == bq0:
+                    main_err = max(errs)
+    return main_err, checked
+
+
+def phase_k5_bwd_parity(rs):
+    """K5's backward against its plain version at phase 15's shapes:
+    da and db within SCAN_TOL of their largest magnitude (the kernel's
+    fused multiply-add rounds once where the plain version rounds twice);
+    the identity channel's da (its h is 0) exactly 0. Returns (the error
+    at SCAN_MAIN, settings checked)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(42)
+    main_err, checked = None, 0
+    for B, S, W in ((1, 1, 4096), (1, 37, 4096), SCAN_MAIN, (4, 300, 256),
+                    (3, 100, 130)):
+        a, b = scan_inputs(gen, B, S, W)
+        h = rs.rglru_scan(a, b)
+        dh = torch.randn(B, S, W, device="cuda", generator=gen)
+        da, db = rs.rglru_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+        pa, pb = rs.rglru_scan_bwd_plain(a, h, dh)
+        err = max((da - pa).abs().max().item(), (db - pb).abs().max().item())
+        mag = max(pa.abs().max().item(), pb.abs().max().item())
+        zero = bool((da[:, :, W // 3] == 0).all())
+        print(f"K5 bwd B={B:<3d} S={S:<4d} W={W:<5d} da/db max_abs_err "
+              f"{err:.3e} of max {mag:.3e} (tol {SCAN_TOL} relative), "
+              f"identity channel's da {'exact' if zero else 'WRONG'}",
+              flush=True)
+        if not (err <= SCAN_TOL * mag and zero):
+            raise AssertionError(f"K5's backward disagrees with its plain "
+                                 f"version: B={B} S={S} W={W}")
+        if (B, S, W) == SCAN_MAIN:
+            main_err = err
+        checked += 1
+    return main_err, checked
+
+
+def phase_bwd_timings(fa, rs, attn_block_sizes, name):
+    """The backward kernels by ``graph_ms`` (one method for the kernel,
+    its plain version and the library call, which cannot come back
+    empty) beside their bounds: K1's at the encoder's shape (B=32 S=128
+    12 heads of 64, non-causal) and at Qwen2-0.5B's training shape (B=8
+    S=512, 14 query heads over 2 kv heads of 64, causal), bf16, each at
+    the tiles ``mha_prefill`` picks, beside SDPA's backward (the
+    yardstick, called nowhere in the port: ``autograd.grad`` of its
+    output, GQA as phase 5 calls it, its forward run on the stream the
+    graph captures); K5's at SCAN_MAIN (no library call). The profiler's
+    reading and events over back-to-back calls are printed beside.
+    Returns {shape: (ms, plain ms, library ms, bound ms, bound by)}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for label, B, S, Hq, Hkv, causal in (
+            ("encoder", MAIN["B"], MAIN["S"], MAIN["H"], MAIN["H"], False),
+            ("qwen2 train", TRAIN_SHAPE["B"], TRAIN_SHAPE["S"],
+             DECODE_MAIN["Hq"], DECODE_MAIN["Hkv"], True)):
+        D = 64
+        q = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
+        k, v = (randn(gen, B, S, Hkv, D, dtype=torch.bfloat16)
+                for _ in range(2))
+        do = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
+        bq, bk = attn_block_sizes("prefill", S, bh=B * Hq, head_dim=D,
+                                  dtype=torch.bfloat16)
+        kw = dict(causal=causal, bq=bq, bk=bk)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+
+        def bwd():
+            return fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        t_k = graph_ms(bwd)
+        t_prof = device_ms(bwd, launches=3)
+        t_ev = cuda_ms(bwd)
+        t_p = graph_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, do, lse, **kw), iters=3, replays=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ot = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
+        dot = do.transpose(1, 2)
+
+        def lib():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        t_s = graph_ms(lib, stream=side)
+        bound, by = bwd_bound_ms(B, S, S, Hq, Hkv, D, 2, causal=causal)
+        print(f"timing K1 bwd {label} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+              f"bf16 {'causal' if causal else 'non-causal'} bq={bq} bk={bk}"
+              f", over a captured graph (3 launches a call): kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa backward {t_s:.4f} "
+              f"ms, bound {bound:.4f} ms ({by}); kernel by the profiler "
+              f"{fmt_ms(t_prof)}, by events over back-to-back calls "
+              f"{t_ev:.4f} ms [{name}]", flush=True)
+        rows[label] = (t_k, t_p, t_s, bound, by)
+    B, S, W = SCAN_MAIN
+    a, b = scan_inputs(gen, B, S, W)
+    h = rs.rglru_scan(a, b)
+    dh = torch.randn(B, S, W, device="cuda", generator=gen)
+    t_k = graph_ms(lambda: rs.rglru_scan_bwd(a, h, dh))
+    t_prof = device_ms(lambda: rs.rglru_scan_bwd(a, h, dh))
+    t_ev = cuda_ms(lambda: rs.rglru_scan_bwd(a, h, dh))
+    t_p = graph_ms(lambda: rs.rglru_scan_bwd_plain(a, h, dh), iters=3,
+                   replays=3, warmup=1)
+    bound, by = scan_bwd_bound_ms(B, S, W)
+    print(f"timing K5 bwd B={B} S={S} W={W} fp32, over a captured graph: "
+          f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library none, bound "
+          f"{bound:.5f} ms ({by}); kernel by the profiler {fmt_ms(t_prof)}"
+          f", by events {t_ev:.4f} ms [{name}]", flush=True)
+    rows["scan"] = (t_k, t_p, None, bound, by)
+    return rows
+
+
+def grad_errors(grads, ref):
+    """(||g - ref|| / ||ref|| over the whole tree, the mean over leaves of
+    max|g - ref| / max|ref|)."""
+    from repro_torch.training.tree import flatten
+    g, r = flatten(grads), flatten(ref)
+    num = den = 0.0
+    per_leaf = []
+    for key, want in r.items():
+        d = g[key].float() - want
+        num += float(torch.sum(d * d))
+        den += float(torch.sum(want * want))
+        per_leaf.append(float(d.abs().max()) /
+                        max(float(want.abs().max()), 1e-30))
+    return (num / max(den, 1e-30)) ** 0.5, sum(per_leaf) / len(per_leaf)
+
+
+def gradient_gate(cfg, params, loss_of, label):
+    """One batch's gradients through the kernels and through plain
+    attention (and the plain scan), in bf16, both against the fp32
+    plain-attention gradients of the same weights: finite, and the
+    kernels' errors within GRAD_ERR_FACTOR of the plain path's.
+    ``loss_of(cfg, plain)`` gives a loss function of the params."""
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.training.tree import leaves
+    (loss32, _), g32 = value_and_grad(
+        loss_of(dataclasses.replace(cfg, dtype="float32"), True),
+        to_fp32(params))
+    torch.cuda.empty_cache()
+    errs = {}
+    for plain in (False, True):
+        (loss, _), g = value_and_grad(loss_of(cfg, plain), params)
+        if not all(bool(torch.isfinite(x).all()) for x in leaves(g)):
+            raise AssertionError(f"{label}: non-finite gradients "
+                                 f"(plain={plain})")
+        errs[plain] = grad_errors(g, g32)
+        print(f"{label} {'plain' if plain else 'kernels'} bf16: loss "
+              f"{float(loss):.5f} (fp32 {float(loss32):.5f}); gradients vs "
+              f"fp32 plain attention: global relative error "
+              f"{errs[plain][0]:.3e}, mean leaf max-relative error "
+              f"{errs[plain][1]:.3e}", flush=True)
+        del g
+    del g32
+    torch.cuda.empty_cache()
+    (k_glob, k_leaf), (p_glob, p_leaf) = errs[False], errs[True]
+    if k_glob > GRAD_ERR_FACTOR * p_glob or \
+            k_leaf > GRAD_ERR_FACTOR * p_leaf:
+        raise AssertionError(
+            f"{label}: the kernels' gradients stray further from fp32 than "
+            f"plain attention's: {k_glob:.3e} > {GRAD_ERR_FACTOR} x "
+            f"{p_glob:.3e} or {k_leaf:.3e} > {GRAD_ERR_FACTOR} x "
+            f"{p_leaf:.3e}")
+    return errs
+
+
+TRAIN_COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K1 bwd", "K5 bwd")
+
+
+def train_counts(kernels, bwd):
+    return tuple(f.launches for f in kernels + bwd)
+
+
+def check_step_counts(label, got, want):
+    """``got`` a train_counts tuple; ``want`` {counter name: launches}
+    (every other counter 0)."""
+    named = dict(zip(TRAIN_COUNTERS, got))
+    exp = {n: want.get(n, 0) for n in TRAIN_COUNTERS}
+    if named != exp:
+        raise AssertionError(f"{label}: launches {named}, want {exp}")
+
+
+def phase_train_qwen2(kernels, bwd, name):
+    """Phase 28 (d): Qwen2-0.5B at full width in bf16 (random weights from
+    seed 0) on SyntheticLM batches of B=8 x 512 tokens: the gradient gate
+    on the first batch, then TRAIN_STEPS ``train_step``s with remat, each
+    launching K1 24 times forward, 24 in remat and 24 backward (and no
+    other kernel); the loss falls, everything stays finite; step wall,
+    a profiled step's kernels and the device's idle share of that step's
+    own wall, a step's breakdown (profiler and events), peak memory.
+    Returns (cfg, params, launches over the steps, (median step ms,
+    profiled step ms, its kernels' ms))."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import OptConfig, adamw_init, train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_loop import (chunked_ce, loss_fn,
+                                                 value_and_grad)
+    from repro_torch.training.tree import leaves
+    from repro_torch.models import forward
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    params = qwen2_params(cfg, 0)
+    B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  batch_size=B, seed=0))
+    batches = [{"tokens": torch.as_tensor(b["tokens"], device="cuda")}
+               for b in data.batches(TRAIN_STEPS)]
+    gradient_gate(cfg, params, lambda c, plain: (
+        lambda p: loss_fn(c, p, batches[0], plain_attention=plain)),
+        f"Qwen2-0.5B B={B} S={S}")
+    oc = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    opt = adamw_init(params)
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    total = [0] * len(TRAIN_COUNTERS)
+    for i, batch in enumerate(batches):
+        reset_launches(kernels + bwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = train_step(cfg, oc, params, opt, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = train_counts(kernels, bwd)
+        check_step_counts(f"Qwen2-0.5B train step {i}", counts,
+                          {"K1": 2 * cfg.n_layers, "K1 bwd": cfg.n_layers})
+        total = [a + b for a, b in zip(total, counts)]
+        losses.append(loss)
+        if i % 5 == 0 or i == TRAIN_STEPS - 1:
+            print(f"Qwen2-0.5B train step {i:3d} loss {loss:.4f} gnorm "
+                  f"{gn:.3f} wall {walls[-1]:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and all(bool(torch.isfinite(x).all()) for x in leaves(params))):
+        raise AssertionError(f"Qwen2-0.5B training: loss did not fall or "
+                             f"went non-finite: {losses}")
+    step_ms = float(np.median(walls[2:]))
+    # a step's breakdown: events around its parts, and the profiler's
+    # kernels of one whole step
+    batch = batches[-1]
+    with torch.no_grad():
+        t_fwd = cuda_ms(lambda: loss_fn(cfg, params, batch), iters=3,
+                        warmup=1)
+        hid = forward(cfg, params, tokens=batch["tokens"][:, :-1],
+                      return_hidden=True)
+    labels = batch["tokens"][:, 1:]
+    hid.requires_grad_()
+
+    def ce():
+        loss = chunked_ce(cfg, params, hid, labels, labels >= 0)
+        return torch.autograd.grad(loss, hid)
+    t_ce = cuda_ms(ce, iters=3, warmup=1)
+    del hid
+    t_vg = cuda_ms(lambda: value_and_grad(
+        lambda p: loss_fn(cfg, p, batch), params), iters=3, warmup=1)
+    (_, _), grads = value_and_grad(lambda p: loss_fn(cfg, p, batch), params)
+    t_opt = cuda_ms(lambda: adamw_update(oc, params, grads, opt), iters=3,
+                    warmup=1)
+    del grads
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):            # the profiler now and then sees no kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(cfg, oc, params, opt, batch)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        rows = kernel_rows(prof, 1)
+        if rows:
+            break
+    busy = sum(r[0] for r in rows) if rows else None
+    k1f = sum(r[0] for r in rows if "flash_fwd" in r[2])
+    k1b = sum(r[0] for r in rows if "flash_bwd" in r[2])
+    print(f"Qwen2-0.5B train step B={B} S={S} bf16 remat: wall {step_ms:.1f}"
+          f" ms (median of steps 2-{TRAIN_STEPS - 1}, no profiler); the "
+          f"profiled step: wall {prof_ms:.1f} ms (profiler on), kernels "
+          f"{fmt_ms(busy)}, device idle " + (
+              "not measured" if busy is None else
+              f"{max(0.0, 1 - busy / prof_ms):.1%}") +
+          f" of its own wall; K1 forward (48 launches) {k1f:.3f} ms, K1 "
+          f"backward (24) "
+          f"{k1b:.3f} ms; by events: forward + CE (no grad) {t_fwd:.1f} ms,"
+          f" forward + remat + backward {t_vg:.1f} ms, CE forward + "
+          f"backward {t_ce:.1f} ms, AdamW {t_opt:.1f} ms; peak memory "
+          f"{peak:,} B; phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{name}]", flush=True)
+    for ms, calls, key in sorted(rows, reverse=True)[:10]:
+        print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{calls:<4d} {key[:90]}")
+    return cfg, params, tuple(total), (step_ms, prof_ms, busy)
+
+
+def phase_train_gector(kernels, bwd, name):
+    """Phase 28 (e): GECToR-base at full width in bf16 (random weights
+    from seed 0), GECTOR_TRAIN["steps"] steps of ``gector_loss`` and
+    ``adamw_update`` on the port's GECCorpus (train error rate 0.4, as
+    examples/train_gector.py), B=32 x 128, non-causal K1: 12 launches
+    forward and 12 backward a step, the loss falls; tag_acc printed.
+    Returns (cfg, params, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.corpus import CorpusConfig, GECCorpus
+    from repro_torch.core.gector import gector_loss, init_gector
+    from repro_torch.training import OptConfig, adamw_init
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_loop import value_and_grad
+    t_phase = time.perf_counter()
+    cfg = get_config("gector-base")
+    corpus = GECCorpus(CorpusConfig(vocab_size=cfg.vocab_size,
+                                    edit_words=256, error_rate=0.4, seed=0))
+    params = init_gector(cfg, corpus.vocab, 0, device="cuda")
+    n = GECTOR_TRAIN["steps"]
+    oc = OptConfig(lr=5e-4, warmup_steps=5, total_steps=n,
+                   weight_decay=0.01)
+    opt = adamw_init(params)
+    losses, accs, walls = [], [], []
+    total = [0] * len(TRAIN_COUNTERS)
+    for i, b in enumerate(corpus.batches(GECTOR_TRAIN["B"],
+                                         GECTOR_TRAIN["S"], n)):
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+        reset_launches(kernels + bwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss, m), g = value_and_grad(
+            lambda p: gector_loss(cfg, p, batch), params)
+        params, opt, _ = adamw_update(oc, params, g, opt)
+        del g
+        losses.append(float(loss))
+        accs.append((float(m["tag_acc"]), float(m["edit_acc"])))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = train_counts(kernels, bwd)
+        check_step_counts(f"GECToR-base step {i}", counts,
+                          {"K1": cfg.n_layers, "K1 bwd": cfg.n_layers})
+        total = [a + c for a, c in zip(total, counts)]
+        if i % 10 == 0 or i == n - 1:
+            print(f"GECToR-base train step {i:3d} loss {losses[-1]:.4f} "
+                  f"tag_acc {accs[-1][0]:.3f} edit_acc {accs[-1][1]:.3f}",
+                  flush=True)
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"GECToR-base B={GECTOR_TRAIN['B']} S={GECTOR_TRAIN['S']} bf16: "
+          f"loss {head:.4f} -> {tail:.4f} (means of the first and last 5 "
+          f"steps), tag_acc {accs[0][0]:.3f} -> {accs[-1][0]:.3f}, step "
+          f"wall {np.median(walls[2:]):.1f} ms (median); phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{name}]", flush=True)
+    if not (all(np.isfinite(losses)) and tail < head):
+        raise AssertionError(f"GECToR-base training: loss did not fall: "
+                             f"{losses}")
+    return cfg, params, tuple(total)
+
+
+def phase_train_hybrid(kernels, bwd, name):
+    """Phase 28 (f): RecurrentGemma-9B at full width in bf16 (random
+    weights from seed 0) with its pattern cut to one (rglru, rglru,
+    attn_local) triple: 3 layers, 1.7 B parameters with the 256k fp32
+    embedding. All 38 layers' params, grads and fp32 moments (~108 GB) do
+    not fit one card, and one period (19 layers) is ~60 GB before
+    activations. The gradient gate at B=2 x 512, then one ``train_step``
+    with remat: K5 2 launches forward, 2 in remat and 2 backward, K1 at
+    head dim 256 1, 1 and 1. Returns launches over the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import OptConfig, adamw_init, train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_loop import loss_fn
+    from repro_torch.training.tree import leaves
+    t_phase = time.perf_counter()
+    triple = ("rglru", "rglru", "attn_local")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              pattern=triple, n_layers=len(triple))
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(x.numel() for x in leaves(params))
+    B, S = HYBRID_TRAIN["B"], HYBRID_TRAIN["S"]
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  batch_size=B, seed=0))
+    batch = {"tokens": torch.as_tensor(next(data.batches(1))["tokens"],
+                                       device="cuda")}
+    gradient_gate(cfg, params, lambda c, plain: (
+        lambda p: loss_fn(c, p, batch, plain_attention=plain)),
+        f"RecurrentGemma-9B ({cfg.n_layers} layers) B={B} S={S}")
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    opt = adamw_init(params)
+    reset_launches(kernels + bwd)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = train_step(cfg, oc, params, opt, batch)
+    loss = float(m["loss"])
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = train_counts(kernels, bwd)
+    check_step_counts("RecurrentGemma-9B train step", counts,
+                      {"K1": 2, "K1 bwd": 1, "K5": 4, "K5 bwd": 2})
+    if not (np.isfinite(loss) and all(bool(torch.isfinite(x).all())
+                                      for x in leaves(params))):
+        raise AssertionError("RecurrentGemma-9B train step: non-finite")
+    print(f"RecurrentGemma-9B train step, pattern cut to one triple "
+          f"({cfg.n_layers} layers, {n_params:,} params), B={B} S={S} bf16 "
+          f"remat: loss {loss:.4f} gnorm {float(m['grad_norm']):.3f}, wall "
+          f"{wall:.1f} ms (first step), peak memory "
+          f"{torch.cuda.max_memory_allocated():,} B; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{name}]", flush=True)
+    return counts
+
+
+def phase_train_checkpoints(qcfg, qparams, gcfg, gparams, name):
+    """Phase 28 (g): (d)'s and (e)'s trained trees saved and restored
+    (``training.checkpoint``, under ``build/``) bit for bit, then four
+    requests served from the Qwen2-0.5B checkpoint (the decoder engine,
+    batch at a time, greedy) with the tokens the same engine gives on
+    the tree held in memory."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.tree import flatten
+    out_dir = Path(__file__).resolve().parent / "build" / "ckpt"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    restored = {}
+    for label, tree in (("qwen2", qparams), ("gector", gparams)):
+        path = out_dir / f"{label}.ckpt"
+        t0 = time.perf_counter()
+        ck.save(str(path), {"params": tree})
+        t_save = time.perf_counter() - t0
+        back = ck.restore(str(path), device="cuda")["params"]
+        t_load = time.perf_counter() - t0 - t_save
+        a, b = flatten(tree), flatten(back)
+        same = sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+        size = path.stat().st_size
+        path.unlink()
+        print(f"checkpoint {label}: {len(a)} leaves, {size:,} B, save "
+              f"{t_save:.1f} s, restore {t_load:.1f} s, "
+              f"{'bit-equal' if same else 'DIFFERS'}", flush=True)
+        if not same:
+            raise AssertionError(f"checkpoint {label} did not restore "
+                                 f"bit for bit")
+        restored[label] = back
+    rng = np.random.default_rng(28)
+    prompts = [rng.integers(0, qcfg.vocab_size, int(n))
+               for n in rng.integers(8, 30, 4)]
+    streams = []
+    for tree in (qparams, restored["qwen2"]):
+        eng = ServingEngine(qcfg, tree, EngineConfig(
+            mode="decoder", continuous=False, use_cache_pool=False,
+            max_batch=4, pad_buckets=(32,), max_new_tokens=8),
+            device="cuda")
+        try:
+            hs = [eng.generate(p, SamplingParams(max_new_tokens=8))
+                  for p in prompts]
+            streams.append([h.result(timeout=300).tokens.tolist()
+                            for h in hs])
+        finally:
+            eng.close()
+    same = streams[0] == streams[1]
+    print(f"served 4 requests from the Qwen2-0.5B checkpoint: "
+          f"{'the tokens of the tree in memory' if same else 'OTHER TOKENS'}"
+          f" (first request {streams[1][0]})", flush=True)
+    if streams[0] != streams[1]:
+        raise AssertionError("the checkpoint served other tokens than the "
+                             "tree it was saved from")
+
+
+def phase_spec_trained(name):
+    """Phase 28 (h), printed only: ``bench_spec_decode``'s target (the
+    Qwen2 smoke config widened to d_model 640, 10/2 heads of 64, d_ff
+    1536; benchmarks/run.py:766-784) and a one-layer draft, each trained
+    SPEC_TRAIN_STEPS steps by the port on SyntheticLM (B=16 x 32, lr 3e-3,
+    as ``_train_lm``), then 4 requests of 16 tokens through the spec
+    engine (spec_k 7), beside the same pair untrained. The bench's draft
+    (d_model 112, 7 heads) has heads of 16, which K1 and K2 are not built
+    for: this draft is 128 wide, 2 heads of 64 over one kv head."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.training import OptConfig, adamw_init, train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    t_phase = time.perf_counter()
+    base = get_config("qwen2-0.5b", smoke=True)
+    cfg = dataclasses.replace(base, name="qwen2-smoke-spec-target",
+                              d_model=640, n_heads=10, n_kv_heads=2,
+                              d_ff=1536)
+    dcfg = dataclasses.replace(cfg, name="qwen2-smoke-spec-draft",
+                               n_layers=1, d_model=128, n_heads=2,
+                               n_kv_heads=1, d_ff=256)
+    dcf = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, batch_size=16,
+                     seed=0)
+
+    def train(c, seed):
+        p = init_params(c, seed, device="cuda")
+        oc = OptConfig(lr=3e-3, warmup_steps=5,
+                       total_steps=SPEC_TRAIN_STEPS)
+        o = adamw_init(p)
+        first = last = None
+        for b in SyntheticLM(dcf).batches(SPEC_TRAIN_STEPS):
+            p, o, m = train_step(c, oc, p, o, {"tokens": torch.as_tensor(
+                b["tokens"], device="cuda")})
+            last = float(m["loss"])
+            first = last if first is None else first
+        return p, first, last
+
+    pairs = {"random": (init_params(cfg, 0, device="cuda"),
+                        init_params(dcfg, 1, device="cuda"))}
+    tp, t0, t1 = train(cfg, 0)
+    dp, d0, d1 = train(dcfg, 1)
+    pairs["trained"] = (tp, dp)
+    data = SyntheticLM(dcf)
+    rng = np.random.default_rng(5)
+    data.rng = rng
+    prompts = [data._doc(int(rng.integers(4, 20))) for _ in range(4)]
+    rates = {}
+    for label, (p, d) in pairs.items():
+        eng = ServingEngine(cfg, p, EngineConfig(
+            mode="decoder", max_batch=4, max_new_tokens=16,
+            pad_buckets=(32,), decode_segment=8, spec_decode=True,
+            spec_k=7), draft=(dcfg, d), device="cuda")
+        try:
+            eng.window()
+            hs = [eng.generate(x, SamplingParams(max_new_tokens=16))
+                  for x in prompts]
+            for h in hs:
+                h.result(timeout=300)
+            lanes = eng.window().get("lanes", {})
+        finally:
+            eng.close()
+        prop = sum(s.get("spec_proposed", 0) for s in lanes.values())
+        acc = sum(s.get("spec_accepted", 0) for s in lanes.values())
+        rates[label] = (acc, prop)
+    print(f"spec pair trained {SPEC_TRAIN_STEPS} steps by the port: target "
+          f"loss {t0:.3f} -> {t1:.3f}, draft {d0:.3f} -> {d1:.3f}; accept "
+          f"rate (spec_k 7, 4 requests x 16 tokens) trained "
+          f"{rates['trained'][0]}/{rates['trained'][1]} = "
+          f"{rates['trained'][0] / max(rates['trained'][1], 1):.3f}, "
+          f"random weights {rates['random'][0]}/{rates['random'][1]} = "
+          f"{rates['random'][0] / max(rates['random'][1], 1):.3f}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{name}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3861,22 +4536,26 @@ def main() -> int:
             print(f"ptxas {k}: {inst[:100]}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads, {stack} bytes "
                   f"stack, {smem} bytes static smem", flush=True)
-    # the bf16 instantiations the main paths pick must not spill: K1's,
-    # K2's, and every K3/K4 wgmma and split instantiation (all bf16)
+    # the bf16 instantiations the main paths pick must not spill: K1's
+    # (with and without the log-sum-exps), K2's, every K3/K4 wgmma and
+    # split instantiation (all bf16), and the bf16 ones of K1's backward
     main_insts = {n: r for k in ("flash_attention", "decode_attention",
-                                 "int8_matmul")
+                                 "int8_matmul", "flash_attention_bwd")
                   for n, r in ptxas[k].items()
                   if any(t in n for t in (
                       "flash_fwd_bf16", "decode_merge",
                       "decode_split<__nv_bfloat16",       # demangled
                       "decode_splitI13__nv_bfloat16",     # mangled
-                      "mm_wgmma", "mm_split"))}
+                      "mm_wgmma", "mm_split"))
+                  or ("flash_bwd" in n and "bfloat16" in n)}
     spilled = {n: r for n, r in main_insts.items() if r[1] or r[2]}
     mm_insts = [n for n in main_insts if "mm_wgmma" in n or "mm_split" in n]
-    if not main_insts or len(mm_insts) != 12 or spilled:   # 6 + 6
+    bwd_insts = [n for n in main_insts if "flash_bwd" in n]
+    if not main_insts or len(mm_insts) != 12 or len(bwd_insts) != 7 \
+            or spilled:   # 6 + 6; dot, 3 dkdv, 3 dq
         raise AssertionError(f"main-path bf16 instantiations spill (or were "
-                             f"not all found in the build log: {mm_insts}): "
-                             f"{spilled}")
+                             f"not all found in the build log: {mm_insts}, "
+                             f"{bwd_insts}): {spilled}")
 
     # ---- 2. K1 against its plain version
     main_err, checked = phase_kernel_parity(fa,
@@ -4262,6 +4941,27 @@ def main() -> int:
 
     # ---- 26. the lab's decoder scenarios
     lab, lab_verify = phase_lab_decoder(kernels, name)
+
+    clock("phase 26")
+
+    # ---- 28. training: the backward kernels against their plain versions
+    # and timed; Qwen2-0.5B, GECToR-base and the hybrid (one pattern
+    # triple) trained at full width; checkpoints; the spec pair trained
+    bwd = (fa.flash_attention_bwd, rs.rglru_scan_bwd)
+    k1b_err, k1b_checked = phase_k1_bwd_parity(
+        fa, k1_settings(attn_block_sizes) + k1_settings_256(
+            attn_block_sizes), main="main shape")
+    k5b_err, k5b_checked = phase_k5_bwd_parity(rs)
+    bwd_rows = phase_bwd_timings(fa, rs, attn_block_sizes, name)
+    tq_cfg, tq_params, train_q, _ = phase_train_qwen2(kernels, bwd, name)
+    tg_cfg, tg_params, train_g = phase_train_gector(kernels, bwd, name)
+    phase_train_checkpoints(tq_cfg, tq_params, tg_cfg, tg_params, name)
+    del tq_params, tg_params
+    torch.cuda.empty_cache()
+    train_h = phase_train_hybrid(kernels, bwd, name)
+    torch.cuda.empty_cache()
+    phase_spec_trained(name)
+    clock("phase 28")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -4283,7 +4983,15 @@ def main() -> int:
                 "prefix (bucket 512)": prefix[i],
                 "prefix int8 KV (bucket 512)": prefix8[i],
                 "spec": spec[i], "spec int8": spec8[i],
-                "lab decoder scenarios": lab[i]}
+                "lab decoder scenarios": lab[i],
+                **train_paths(i)}
+
+    def train_paths(i):
+        """Launches of counter i (TRAIN_COUNTERS) on phase 28's paths."""
+        return {f"train Qwen2-0.5B ({TRAIN_STEPS} steps)": train_q[i],
+                f"train GECToR-base ({GECTOR_TRAIN['steps']} steps)":
+                    train_g[i],
+                "train RecurrentGemma-9B (one triple, 1 step)": train_h[i]}
 
     def hybrid_row(times, err=None, checked_256=None):
         ms, plain_ms, lib_ms, bound_ms, bound_by = times
@@ -4293,8 +5001,10 @@ def main() -> int:
             row.update(max_abs_err=err, settings_checked=checked_256)
         return row
 
-    def registers(source):
-        return {n: r[0] for n, r in ptxas[source].items()}
+    def registers(source, bwd=False):
+        return {n: r[0] for n, r in ptxas[source].items()
+                if ("bwd" in n) == bwd}
+    k1b, k5b = bwd_rows["qwen2 train"], bwd_rows["scan"]
     print(name)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -4380,7 +5090,48 @@ def main() -> int:
         "launches_by_path": by_path(4, enc_k5_launches),
         "design": "one thread per (b, w) channel, h in a register, 8 steps "
                   "of loads issued ahead",
-        "registers": registers("rglru_scan")}]}))
+        "registers": registers("rglru_scan")}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:132",
+        "replaces_note": "the TPU kernel has no backward: JAX "
+                         "differentiates its jnp attention "
+                         "(src/repro/models/attention.py:255)",
+        "launches": train_q[5] + train_g[5] + train_h[5],
+        "max_abs_err": k1b_err, "ms": k1b[0], "plain_ms": k1b[1],
+        "bound_ms": k1b[3], "bound_by": k1b[4], "library_ms": k1b[2],
+        "check": "ok", "settings_checked": k1b_checked,
+        "visits_checked": True, "lse_checked": True,
+        "ms_by": "graph_ms (kernel, plain and library, both shapes): 20 "
+                 "calls (3 for the plain version) captured in one CUDA "
+                 "graph, CUDA events around the replays",
+        "shape": "B=8 S=512, 14 query heads over 2 kv heads of 64, causal, "
+                 "bf16 (Qwen2-0.5B training); library: SDPA's backward",
+        "launches_by_path": train_paths(5),
+        "design": "three launches, the forward's tiles, fp32 CUDA-core "
+                  "FMAs: delta = rowsum(dO O) a warp a row; dK/dV a block "
+                  "per (kv tile, kv head) over the group's query heads and "
+                  "live q tiles, 16 rows a step, K/V tiles in shared "
+                  "memory, dK/dV in registers (no atomics); dQ a block "
+                  "per q tile over its live kv tiles",
+        "registers": registers("flash_attention_bwd", bwd=True),
+        "encoder": hybrid_row(bwd_rows["encoder"])}, {
+        "name": "rglru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:42",
+        "replaces_note": "the TPU kernel has no backward: JAX "
+                         "differentiates jax.lax.associative_scan "
+                         "(src/repro/models/rglru.py:106)",
+        "launches": train_h[6], "max_abs_err": k5b_err, "ms": k5b[0],
+        "plain_ms": k5b[1], "bound_ms": k5b[3], "bound_by": k5b[4],
+        "library_ms": None, "check": "ok", "settings_checked": k5b_checked,
+        "ms_by": "graph_ms (kernel and plain): 20 calls (3 for the plain "
+                 "version) captured in one CUDA graph, CUDA events around "
+                 "the replays",
+        "launches_by_path": train_paths(6),
+        "design": "the reverse scan, one thread per (b, w) channel, g in a "
+                  "register, 8 steps of loads issued ahead",
+        "registers": registers("rglru_scan", bwd=True)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

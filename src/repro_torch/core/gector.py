@@ -2,7 +2,8 @@
 
 Port of ``repro/core/gector.py``: a bidirectional transformer encoder
 (configs/gector_base.py) with two linear heads on top, an error-detection
-head and an edit-tag head. Inference is iterative: predict tags, apply
+head and an edit-tag head, trained with ``gector_loss`` (K1 forward and
+backward on the card). Inference is iterative: predict tags, apply
 edits, re-run, for up to ``max_iters`` rounds or until every tag is KEEP.
 """
 from __future__ import annotations
@@ -46,6 +47,30 @@ def gector_forward(cfg, params, tokens, mask=None, *,
     hid = forward(cfg, params["encoder"], tokens=tokens, causal=False,
                   return_hidden=True, plain_attention=plain_attention)
     return gector_heads(params, hid)
+
+
+def gector_loss(cfg, params, batch, *, keep_weight: float = 0.2):
+    """CE on edit tags + CE on the binary detect head (the paper's
+    architecture), masked by valid tokens. KEEP is down-weighted (GECToR's
+    class-imbalance handling: ~90% of tokens are correct, so an unweighted
+    loss collapses to the all-KEEP predictor). batch: {"tokens", "tags",
+    "mask"} (B, S) tensors. Returns (loss, {"tag_acc", "edit_acc"})."""
+    tags, mask = batch["tags"].long(), batch["mask"].bool()
+    tag_logits, det_logits = gector_forward(cfg, params, batch["tokens"])
+    logp = torch.log_softmax(tag_logits, dim=-1)
+    nll_tag = -torch.gather(logp, -1, tags[..., None])[..., 0]
+    w = torch.where(tags == KEEP, keep_weight, 1.0) * mask
+    det_target = (tags != KEEP).long()
+    logp_d = torch.log_softmax(det_logits, dim=-1)
+    nll_det = -torch.gather(logp_d, -1, det_target[..., None])[..., 0]
+    denom = torch.clamp(w.sum(), min=1e-6)
+    loss = torch.sum((nll_tag + 0.5 * nll_det) * w) / denom
+    hit = tag_logits.argmax(-1) == tags
+    acc = torch.sum(hit & mask) / torch.clamp(mask.sum(), min=1)
+    edit_mask = (tags != KEEP) & mask
+    edit_acc = (torch.sum(hit & edit_mask)
+                / torch.clamp(edit_mask.sum(), min=1))
+    return loss, {"tag_acc": acc, "edit_acc": edit_acc}
 
 
 def tags_from_logits(tag_logits, det_logits, mask, *,

@@ -50,6 +50,11 @@
 // with warp shuffles. BQ in {32, 64} for D <= 128 and 32 for D = 256 (a
 // 64-row tile's 512 threads spilled).
 //
+// Training. Given an lse pointer, separate instances of both kernels also
+// write each row's log-sum-exp (row_lse), which the backward
+// (csrc/flash_attention_bwd.cu) recomputes p from; the instances serving
+// runs, without it, are unchanged.
+//
 // Bound. At the encoder's serving shape (B=32, S=128, 12 heads of 64, bf16)
 // q, k, v and o are 4 x 32*128*12*64*2 B = 25.2 MB: 7.5 us at 3.35 TB/s,
 // against 4*32*12*128*128*64 = 1.61 GFLOP, 1.6 us at 989 TFLOP/s. At
@@ -89,6 +94,7 @@ struct Params {
   int causal, window;             // window <= 0: no window
   float softcap, scale;           // softcap <= 0: no softcap
   int n_kv, n_q;                  // live kv tiles, q tiles
+  float* lse;                     // (B, Hq, Sq) or null: see row_lse
 };
 
 // live kv tiles [lo, hi] of the q tile starting at row q0
@@ -114,6 +120,17 @@ __device__ __forceinline__ float score(const Params& p, float acc, int q_pos,
   return ok ? x : kNegInf;
 }
 
+// The row's log-sum-exp for the backward (csrc/flash_attention_bwd.cu):
+// m + log(l). A row with no live column keeps m = -1e30 and l = the
+// number of columns of its visited tiles, each scored -1e30 and weighted
+// exp(0) = 1 (its output is their mean); its m counts as 0, so that the
+// backward, scoring its masked columns 0, recomputes p = 1 / l. A row
+// that visited no tile (l = 0, output 0) gets +1e30: p = 0 everywhere.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  if (!(l > 0.f)) return -kNegInf;
+  return (m <= kNegInf ? 0.f : m) + logf(l);
+}
+
 // ------------------------------------------------------------------ fp32
 
 // threads per query row
@@ -128,7 +145,7 @@ __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
 
-template <int D, int BQ>
+template <int D, int BQ, bool LSE>
 __global__ void __launch_bounds__(BQ * tpr<D>()) flash_fwd_f32(Params p) {
   constexpr int BK = BK_F32;
   constexpr int TPR = tpr<D>();
@@ -241,6 +258,8 @@ __global__ void __launch_bounds__(BQ * tpr<D>()) flash_fwd_f32(Params p) {
       store4(ob + 4 * (sub + TPR * c),
              make_float4(a.x / den, a.y / den, a.z / den, a.w / den));
     }
+    if (LSE && sub == 0)
+      p.lse[static_cast<long long>(bh) * p.Sq + q_pos] = row_lse(m, l);
   }
   if (tid == 0) p.visits[bh * p.n_q + qi] = visits;
 }
@@ -342,7 +361,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
 
 // (minimum one block an SM: without it ptxas capped the D = 64 and 128
 // instances below their need and spilled)
-template <int D, int NWARP>
+template <int D, int NWARP, bool LSE>
 __global__ void __launch_bounds__(NWARP * 32, 1) flash_fwd_bf16(Params p) {
   constexpr int BQ = 16 * NWARP;
   constexpr int NT = NWARP * 32;
@@ -519,6 +538,13 @@ __global__ void __launch_bounds__(NWARP * 32, 1) flash_fwd_bf16(Params p) {
       *reinterpret_cast<uint4*>(ob + row * p.o_ss + c) =
           *reinterpret_cast<const uint4*>(Os + r * LD + c);
   }
+  if (LSE && lane % 4 == 0) {              // m, l are the quad's own
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (qr[i] < p.Sq)
+        p.lse[static_cast<long long>(bh) * p.Sq + qr[i]] =
+            row_lse(m[i], l[i]);
+  }
   if (tid == 0) p.visits[bh * p.n_q + qi] = visits;
 }
 
@@ -531,26 +557,39 @@ int raise_smem_limit(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <int D, int BQ>
-int launch_f32(const Params& p, int B, cudaStream_t stream) {
+template <int D, int BQ, bool LSE>
+int launch_f32_as(const Params& p, int B, cudaStream_t stream) {
   constexpr int bytes = 2 * BK_F32 * D * static_cast<int>(sizeof(float));
   // once per kernel instance (thread-safe static initialisation)
-  static const int attr = raise_smem_limit(flash_fwd_f32<D, BQ>, bytes);
+  static const int attr = raise_smem_limit(flash_fwd_f32<D, BQ, LSE>, bytes);
   if (attr != 0) return attr;
   const dim3 grid(p.n_q, B * p.Hq);
-  flash_fwd_f32<D, BQ><<<grid, BQ * tpr<D>(), bytes, stream>>>(p);
+  flash_fwd_f32<D, BQ, LSE><<<grid, BQ * tpr<D>(), bytes, stream>>>(p);
+  return 0;
+}
+
+// the instance without the log-sum-exp (serving) or with it (training)
+template <int D, int BQ>
+int launch_f32(const Params& p, int B, cudaStream_t stream) {
+  return p.lse ? launch_f32_as<D, BQ, true>(p, B, stream)
+               : launch_f32_as<D, BQ, false>(p, B, stream);
+}
+
+template <int D, int BQ, bool LSE>
+int launch_bf16_as(const Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes_bf16<D, BQ>();
+  static const int attr =
+      raise_smem_limit(flash_fwd_bf16<D, BQ / 16, LSE>, bytes);
+  if (attr != 0) return attr;
+  const dim3 grid(p.n_q, B * p.Hq);
+  flash_fwd_bf16<D, BQ / 16, LSE><<<grid, BQ * 2, bytes, stream>>>(p);
   return 0;
 }
 
 template <int D, int BQ>
 int launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes_bf16<D, BQ>();
-  static const int attr =
-      raise_smem_limit(flash_fwd_bf16<D, BQ / 16>, bytes);
-  if (attr != 0) return attr;
-  const dim3 grid(p.n_q, B * p.Hq);
-  flash_fwd_bf16<D, BQ / 16><<<grid, BQ * 2, bytes, stream>>>(p);
-  return 0;
+  return p.lse ? launch_bf16_as<D, BQ, true>(p, B, stream)
+               : launch_bf16_as<D, BQ, false>(p, B, stream);
 }
 
 int dispatch_f32(const Params& p, int B, int D, int bq, cudaStream_t st) {
@@ -584,12 +623,14 @@ extern "C" int flash_attention_block_k(int dtype, int D) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head-dim
-// stride must be 1 and rows 16-byte aligned. Returns cudaGetLastError()
-// after the launch (0 = ok).
+// stride must be 1 and rows 16-byte aligned. lse: null, or (B, Hq, Sq)
+// float32 for the row log-sum-exps (row_lse), written by a separate
+// instance of each kernel, so the one without it, which serving runs, is
+// the code it was. Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int* visits,
-    int dtype, int D, int bq, int B, int Hq, int Hkv, int Sq, int Skv,
-    int kv_len, int causal, int window, float softcap, float scale,
+    float* lse, int dtype, int D, int bq, int B, int Hq, int Hkv, int Sq,
+    int Skv, int kv_len, int causal, int window, float softcap, float scale,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -598,7 +639,7 @@ extern "C" int flash_attention_fwd(
   const int bk = flash_attention_block_k(dtype, D);
   if (bk == 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o; p.visits = visits;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.visits = visits; p.lse = lse;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;

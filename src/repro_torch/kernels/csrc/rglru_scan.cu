@@ -71,18 +71,87 @@ rglru_scan_fwd(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// The backward: the reverse scan g_t = dh_t + a_{t+1} g_{t+1} (g_S = 0),
+// then db_t = g_t and da_t = g_t h_{t-1} (h_{-1} = 0), from the forward's
+// saved h. The TPU kernel has no backward (JAX differentiates
+// jax.lax.associative_scan, src/repro/models/rglru.py:106); this one
+// mirrors the forward: a thread per channel walks t = S-1 .. 0 with g in a
+// register, U steps of loads issued ahead. It reads a, h and dh and writes
+// da and db, 5 * B * S * W * 4 bytes (0.100 ms at the hybrid's prefill
+// shape), so it is bound by memory too. g = fmaf(a_{t+1}, g, dh_t) rounds
+// once where the plain version rounds twice.
+__global__ void __launch_bounds__(NT)
+rglru_scan_bwd_k(const float* __restrict__ a, const float* __restrict__ h,
+                 const float* __restrict__ dh, float* __restrict__ da,
+                 float* __restrict__ db, int S, int W, long long channels) {
+  const long long c = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
+  if (c >= channels) return;
+  const long long base = (c / W) * S * W + c % W;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* gp = dh + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+  float g = 0.f, a_next = 0.f;
+  int t = S - 1;
+  for (; t + 1 >= U; t -= U) {           // steps t, t-1, .., t-U+1
+    float av[U], hv[U], gv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long off = static_cast<long long>(t - u) * W;
+      av[u] = __ldg(ap + off);
+      gv[u] = __ldg(gp + off);
+      hv[u] = t - u > 0 ? __ldg(hp + off - W) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long off = static_cast<long long>(t - u) * W;
+      g = fmaf(a_next, g, gv[u]);
+      dbp[off] = g;
+      dap[off] = g * hv[u];
+      a_next = av[u];
+    }
+  }
+  for (; t >= 0; --t) {
+    const long long off = static_cast<long long>(t) * W;
+    g = fmaf(a_next, g, __ldg(gp + off));
+    dbp[off] = g;
+    dap[off] = t > 0 ? g * __ldg(hp + off - W) : 0.f;
+    a_next = __ldg(ap + off);
+  }
+}
+
+bool bad_shape(int B, int S, int W, long long* channels, long long* blocks) {
+  *channels = static_cast<long long>(B) * W;
+  *blocks = (*channels + NT - 1) / NT;
+  return B < 1 || S < 1 || W < 1 || *blocks > 0x7fffffffLL;
+}
+
 }  // namespace
 
 // a, b, h: (B, S, W) float32, contiguous. Returns cudaGetLastError() after
 // the launch (0 = ok).
 extern "C" int rglru_scan(const float* a, const float* b, float* h, int B,
                           int S, int W, void* stream) {
-  if (B < 1 || S < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long channels = static_cast<long long>(B) * W;
-  const long long blocks = (channels + NT - 1) / NT;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  long long channels, blocks;
+  if (bad_shape(B, S, W, &channels, &blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
   rglru_scan_fwd<<<static_cast<unsigned>(blocks), NT, 0,
                    static_cast<cudaStream_t>(stream)>>>(a, b, h, S, W,
                                                         channels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, h (the forward's output), dh -> da, db: (B, S, W) float32,
+// contiguous. Returns cudaGetLastError() after the launch (0 = ok).
+extern "C" int rglru_scan_bwd(const float* a, const float* h,
+                              const float* dh, float* da, float* db, int B,
+                              int S, int W, void* stream) {
+  long long channels, blocks;
+  if (bad_shape(B, S, W, &channels, &blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  rglru_scan_bwd_k<<<static_cast<unsigned>(blocks), NT, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a, h, dh, da, db,
+                                                          S, W, channels);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,12 @@ repeat kv_pos per kv head and pad to whole tiles (or seq blocks) before
 the kernel; the Hopper kernels read (B, S, H, D), (B, L) and (M, K)
 through strides and mask the ragged edges themselves, so here the
 wrappers only pick the tiles (``matmul_plan`` for K3/K4).
+
+Training: where grad is enabled and an input requires it, ``mha_prefill``
+and ``lru_scan`` run through a ``torch.autograd.Function`` each, whose
+backward is K1's or K5's backward kernel (their plain versions on a CPU
+tensor). Elsewhere, and under ``torch.inference_mode`` as every serving
+program runs, they launch exactly what they launched before.
 """
 from __future__ import annotations
 
@@ -16,10 +22,48 @@ from repro_torch.kernels.decode_attention import BLOCK_K as DECODE_BLOCK_K
 from repro_torch.kernels.decode_attention import (H100_SMS, decode_attention,
                                                   decode_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
                                                  kernel_tiles)
 from repro_torch.kernels.int8_matmul import (cache_matmul, int8_matmul,
                                              int8_matmul_plain, matmul_plan)
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                            rglru_scan_plain)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _Attention(torch.autograd.Function):
+    """K1 forward (with the rows' log-sum-exps) and K1 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.kw)
+        return dq, dk, dv, None
+
+
+class _LruScan(torch.autograd.Function):
+    """K5 forward and K5 backward (the reverse scan over the saved h)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return rglru_scan_bwd(a, h, dh)
 
 
 def attn_block_sizes(kind: str, sq: int, *, bh: int = 1,
@@ -59,12 +103,16 @@ def mha_prefill(q, k, v, *, causal=True, window=None, softcap=None,
                 kv_len=None):
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D), at the
     tiles ``attn_block_sizes`` picks. ``kv_len`` (default Skv) masks kv
-    columns at and beyond it."""
+    columns at and beyond it. Differentiable where grad is enabled (K1's
+    backward at the same tiles)."""
     B, Sq, Hq, D = q.shape
     bq, bk = attn_block_sizes("prefill", Sq, bh=B * Hq, head_dim=D,
                               dtype=q.dtype)
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           softcap=softcap, kv_len=kv_len, bq=bq, bk=bk)
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
+              bq=bq, bk=bk)
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, kw)
+    return flash_attention(q, k, v, **kw)
 
 
 def decode_partition(width: int, n_kv_heads: int, ring_len: int):
@@ -142,4 +190,6 @@ def lru_scan(a, b, *, plain: bool = False):
     a, b = a.float(), b.float()
     if plain:
         return rglru_scan_plain(a, b)
+    if _needs_grad(a, b):
+        return _LruScan.apply(a, b)
     return rglru_scan(a, b)

@@ -11,6 +11,11 @@ Both take a and b as (B, S, W) fp32 and return h (B, S, W) fp32. The TPU
 wrapper pads S to a whole seq block with the identity (a = 1, b = 0); the
 Hopper kernel needs no padding. What bounds the kernel on the card, and
 what its design does about it, is set out at the top of the CUDA source.
+
+The backward (``rglru_scan_bwd``: da, db from a, the forward's h and
+dh) is the reverse scan in the same source, with ``rglru_scan_bwd_plain``
+beside it. The TPU kernel has none: JAX differentiates its associative
+scan. ``ops.lru_scan`` joins the two in a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -46,6 +51,22 @@ def rglru_scan_plain(a, b):
     return out
 
 
+def rglru_scan_bwd_plain(a, h, dh):
+    """The reverse recurrence in PyTorch, one step per t from the end:
+    g = dh[:, t] + a[:, t+1] * g (a product, then a sum), db_t = g,
+    da_t = g * h[:, t-1] with h_{-1} = 0. Returns (da, db)."""
+    _check(a, h)
+    _check(a, dh)
+    g = a_next = torch.zeros_like(a[:, 0])       # g_S = 0, a_S = 0
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dh[:, t] + a_next * g
+        db[:, t] = g
+        da[:, t] = g * h[:, t - 1] if t > 0 else 0.0
+        a_next = a[:, t]
+    return da, db
+
+
 def _lib():
     lib = build.load("rglru_scan")
     fn = lib.rglru_scan
@@ -53,6 +74,8 @@ def _lib():
         i, p = ctypes.c_int, ctypes.c_void_p
         fn.restype = i
         fn.argtypes = [p, p, p, i, i, i, p]
+        lib.rglru_scan_bwd.restype = i
+        lib.rglru_scan_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
     return lib
 
 
@@ -83,3 +106,35 @@ def rglru_scan(a, b):
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a, h, dh):
+    """a, h (the forward's output), dh: (B, S, W) float32 -> (da, db)
+    float32, the gradients of ``rglru_scan`` at (a, b).
+
+    A CPU tensor runs ``rglru_scan_bwd_plain``. A CUDA tensor launches the
+    backward kernel (on contiguous copies of strided inputs) and adds one
+    to ``rglru_scan_bwd.launches``."""
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_plain(a, h, dh)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan_bwd runs on cpu or cuda, not "
+                         f"{a.device}")
+    _check(a, h)
+    _check(a, dh)
+    a, h, dh = a.contiguous(), h.contiguous(), dh.contiguous()
+    B, S, W = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.rglru_scan_bwd(a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+                                da.data_ptr(), db.data_ptr(), B, S, W, stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    rglru_scan_bwd.launches += 1
+    return da, db
+
+
+rglru_scan_bwd.launches = 0

@@ -17,7 +17,11 @@ through ``generate()``, on the continuous scheduler over the KV pool
 arrive. ``--ladder NS ...`` instead fires the paper's load ladder at the
 engine (``core.loadtest.run_ladder``, one repeat) and prints its table.
 Runs on the card; ``--device cpu --smoke`` runs the small config on the
-CPU. Weights are random, drawn from ``--seed``.
+CPU. Weights are random, drawn from ``--seed``, unless ``--ckpt`` names a
+checkpoint (``training.checkpoint``, either package's): its ``params``
+are served, a GECToR tree's ``encoder`` in decoder mode; in encoder mode
+a GECToR tree's encoder with its heads where it has them (random heads
+from ``--seed`` where it does not), and an LM tree as the encoder.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.core.tags import TagVocab
 from repro_torch.models import init_params
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.api import SamplingParams
+from repro_torch.training.checkpoint import restore
 
 
 def _ladder(args, cfg, eng, rng) -> None:
@@ -42,8 +47,18 @@ def _ladder(args, cfg, eng, rng) -> None:
     print(format_table(cells))
 
 
+def _checkpoint(args):
+    """The ``params`` tree of ``--ckpt`` on the device, or None."""
+    if not args.ckpt:
+        return None
+    return restore(args.ckpt, device=args.device)["params"]
+
+
 def _serve_encoder(args, cfg, rng):
     params = init_gector(cfg, TagVocab(64), args.seed, device=args.device)
+    tree = _checkpoint(args)
+    if tree is not None:
+        params.update(tree if "encoder" in tree else {"encoder": tree})
     eng = ServingEngine(cfg, params,
                         EngineConfig(mode="encoder", max_batch=args.max_batch,
                                      max_inflight=args.max_inflight),
@@ -55,15 +70,19 @@ def _serve_encoder(args, cfg, rng):
         sentences = [rng.integers(0, cfg.vocab_size, rng.integers(8, 33))
                      for _ in range(args.requests)]
         futs = [eng.submit(s) for s in sentences]
-        for f in futs:
-            f.result(timeout=600)
+        tags = [f.result(timeout=600) for f in futs]
+        print("tags of the first request:", tags[0].tolist())
         print("metrics:", eng.metrics())
     finally:
         eng.close()
 
 
 def _serve_decoder(args, cfg, rng):
-    params = init_params(cfg, args.seed, device=args.device)
+    params = _checkpoint(args)
+    if params is None:
+        params = init_params(cfg, args.seed, device=args.device)
+    elif "encoder" in params:            # a GECToR checkpoint
+        params = params["encoder"]
     eng = ServingEngine(cfg, params,
                         EngineConfig(mode="decoder",
                                      continuous=not args.no_continuous,
@@ -121,6 +140,8 @@ def main(argv=None):
     ap.add_argument("--no-continuous", action="store_true",
                     help="decoder: batch-at-a-time worker (A/B baseline)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="serve this checkpoint's params")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -20,6 +20,7 @@ and recurrent states are written in place (JAX returns new arrays).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -164,7 +165,8 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             caches=None, mode: str = "full", causal: bool = True,
             return_hidden: bool = False, plain_attention: bool = False,
             plain_matmul: bool = False, head_w=None,
-            decode_width: int | None = None, partition=None):
+            decode_width: int | None = None, partition=None,
+            remat: bool = False):
     """Run the model. tokens: (B, S) int; positions: (B, S), default
     0..S-1.
 
@@ -188,7 +190,11 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     ``ops.gqa_decode``. Parameters may be
     ``quantize_params``' tree: its int8 projections go through K3. With
     ``cfg.embed_scale`` the embedding is scaled by sqrt(d_model), rounded
-    to the model dtype, as JAX does for the Gemma family."""
+    to the model dtype, as JAX does for the Gemma family. ``remat`` (with
+    grad enabled) runs each block under ``torch.utils.checkpoint``
+    (``use_reentrant=False``), as JAX's ``jax.checkpoint`` of its period
+    body: the backward recomputes the block's activations, K1 and K5
+    included, instead of keeping them."""
     if mode not in ("full", "decode", "chunk", "verify"):
         raise ValueError(f"mode must be 'full', 'decode', 'chunk' or "
                          f"'verify', got {mode!r}")
@@ -217,11 +223,17 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
         for i in range(cfg.n_periods):
             cache = (None if cache_blk is None else
                      {k: t[i] for k, t in cache_blk.items()})
-            x = _apply_block(cfg, kind, _index_tree(blk, i), x, positions,
-                             cache, mode=mode, causal=causal,
-                             plain_attention=plain_attention,
-                             plain_matmul=plain_matmul, rope=rope,
-                             decode_width=decode_width, partition=partition)
+            kw = dict(mode=mode, causal=causal,
+                      plain_attention=plain_attention,
+                      plain_matmul=plain_matmul, rope=rope,
+                      decode_width=decode_width, partition=partition)
+            if remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    _apply_block, cfg, kind, _index_tree(blk, i), x,
+                    positions, cache, use_reentrant=False, **kw)
+            else:
+                x = _apply_block(cfg, kind, _index_tree(blk, i), x,
+                                 positions, cache, **kw)
     if mode == "verify":
         return attn_mod.per_row(lambda t: _final(cfg, params, t,
                                                  return_hidden, head_w), x)

@@ -1,6 +1,7 @@
 """The port stands alone: ``src/repro_torch/**``, ``chip_smoke.py`` and
 ``chip_sweep.py`` import neither ``jax`` nor anything of the JAX package ``repro`` (the
-machine with the card has no JAX). Checked on the source, with ``ast``:
+machine with the card has no JAX), nor ``msgpack`` (nor has it that: the
+checkpoints' encoder is the port's own). Checked on the source, with ``ast``:
 import statements, ``import_module``/``__import__`` calls with a constant
 name, and every string constant that is a whole dotted ``repro`` module
 path, which a lazy import map (``{"name": "pkg.module"}``) would hand to
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_sweep.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 MODULE_PATH = re.compile(r"^repro(\.\w+)+$")
 
 
@@ -44,6 +45,13 @@ def test_the_port_has_modules():
     assert "src/repro_torch/models/rglru.py" in names
     assert "src/repro_torch/deploy/runner.py" in names
     assert "src/repro_torch/launch/experiment.py" in names
+    for module in ("training/__init__.py", "training/optimizer.py",
+                   "training/train_loop.py", "training/data.py",
+                   "training/checkpoint.py", "training/tree.py",
+                   "launch/train.py"):
+        assert f"src/repro_torch/{module}" in names
+    assert (ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+            ).exists()
     assert len(FILES) > 15
 
 
