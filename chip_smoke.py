@@ -197,15 +197,20 @@ Phases (each raises on failure; nothing is caught):
      round uncaptured, the accept rate and tokens/s; (e) a captured
      round at width 1 and 16 beside phase 23's 4-step segments.
  28. (after phase 26) training: (a) K1's backward against its plain
-     version in phases 2 and 16's settings, fp32 and bf16 at every built
-     tile, visits from both sides against ``live_block_counts`` /
-     ``live_q_counts``, the forward's log-sum-exps against the plain
-     forward's (whose out and lse the plain backward takes), and the
-     forward's output with its log-sum-exps bit-equal to the output
-     without; (b) K5's backward against its plain version at phase 15's
-     shapes; (c) both timed by ``graph_ms`` beside their bounds, plain
-     versions and (K1) SDPA's backward, K1's at the encoder's shape and
-     at Qwen2-0.5B's training shape (B=8 S=512, causal); (d)
+     version in phases 2 and 16's settings and at the training shapes of
+     Qwen2-0.5B (B=8 S=512, 14/2 heads, causal) and the hybrid (B=2
+     S=512, 16/1 heads of 256, causal, window 2048), fp32 and bf16 at
+     every built tile, visits from both sides against
+     ``live_block_counts`` / ``live_q_counts``, the forward's
+     log-sum-exps against the plain forward's (whose out and lse the
+     plain backward takes), the forward's output with its log-sum-exps
+     bit-equal to the output without, two calls bit-equal, and the bf16
+     dK/dV kernel's cluster within one bf16 rounding of a launch with
+     cluster 1; (b) K5's
+     backward against its plain version at phase 15's shapes; (c) both
+     timed by ``graph_ms`` beside their bounds, plain versions and (K1)
+     SDPA's backward, K1's at the encoder's shape and at the two
+     training shapes, there also at every cluster size; (d)
      Qwen2-0.5B at full width in bf16: one batch's gradients through the
      kernels and through plain attention against fp32 plain-attention
      gradients (the kernels' errors within 1.5x plain's), then 20
@@ -3861,6 +3866,16 @@ SPEC_TRAIN_STEPS = 60              # benchmarks/run.py bench_spec_decode
 # leaves' relative errors), as phases 3 and 7 gate hidden states and
 # logits.
 GRAD_ERR_FACTOR = 1.5
+# K1's backward before its tensor-core design (the CUDA-core kernel), by
+# graph_ms on an "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md section 6):
+# printed in phase 28 (c)'s log beside this run's times, not measured
+# here, and kept out of the kernels line
+K1_BWD_WAS_MS = {"qwen2 train": 2.0075, "encoder": 0.5441}
+# a bf16 dK/dV launch at cluster c against cluster 1: one bf16 rounding of
+# the value, and the fp32 sums' order in a small part of the largest
+CLUSTER_RTOL, CLUSTER_ATOL = 2 ** -7, 2 ** -16
+# launches of one bf16 K1 backward: dQ (with delta), then dK/dV
+K1_BWD_BF16_LAUNCHES = 2
 
 
 def bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, itemsize, causal=False):
@@ -3888,19 +3903,43 @@ def scan_bwd_bound_ms(B, S, W):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_train_settings(attn_block_sizes):
+    """K1's backward at the training shapes phase 28 runs, at the bq the
+    model takes: Qwen2-0.5B (B=8 S=512, 14/2 heads of 64, causal,
+    kv_len = S) and RecurrentGemma-9B's local layers (B=2 S=512, 16/1
+    heads of 256, causal, window 2048)."""
+    def bq(B, S, Hq, D):
+        return attn_block_sizes("prefill", S, bh=B * Hq, head_dim=D,
+                                dtype=torch.bfloat16)[0]
+    B, S, h = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"], DECODE_MAIN
+    Bh, Sh, y = HYBRID_TRAIN["B"], HYBRID_TRAIN["S"], HYBRID_MAIN
+    return [  # (name, B, Sq, Skv, Hq, Hkv, D, bq, kwargs)
+        ("qwen2 train", B, S, S, h["Hq"], h["Hkv"], h["D"],
+         bq(B, S, h["Hq"], h["D"]), dict(causal=True, kv_len=S)),
+        ("hybrid train", Bh, Sh, Sh, y["Hq"], y["Hkv"], y["D"],
+         bq(Bh, Sh, y["Hq"], y["D"]),
+         dict(causal=True, window=HYBRID_WINDOW, kv_len=Sh)),
+    ]
+
+
 def phase_k1_bwd_parity(fa, settings, main):
     """K1's backward against its plain version in each of ``settings``
-    (phases 2 and 16's) at the kernel's tiles: fp32 at the setting's bq
-    (32 where fp32 is not built for it), bf16 at every bq K1 is built
-    for, fp32 within FP32_TOL absolute and bf16 within BF16_TOL (absolute
-    and relative), as phase 2 holds the forward; the q-side visits equal
-    ``live_block_counts`` and the kv side's ``live_q_counts``, both the
-    plain version's; the forward's log-sum-exps within FP32_TOL of the
-    plain forward's; and the forward's output with the log-sum-exps
-    asked for bit-equal to the output without. The plain backward gets
-    the plain forward's out and lse, so that the two kernels together are
-    held against the two plain versions. Returns (the bf16 error of
-    ``main`` at its bq, settings checked)."""
+    (phases 2 and 16's and the training shapes) at the kernel's tiles:
+    fp32 at the setting's bq (32 where fp32 is not built for it), bf16 at
+    every bq K1 is built for, fp32 within FP32_TOL absolute and bf16
+    within BF16_TOL (absolute and relative), as phase 2 holds the
+    forward; the q-side visits equal ``live_block_counts`` and the kv
+    side's ``live_q_counts``, both the plain version's; the forward's
+    log-sum-exps within FP32_TOL of the plain forward's; the forward's
+    output with the log-sum-exps asked for bit-equal to the output
+    without; a second call bit-equal to the first; and, where the bf16
+    dK/dV kernel runs as a cluster (``bwd_cluster`` > 1), its dK and dV
+    within CLUSTER_RTOL relative and CLUSTER_ATOL of the largest value of
+    a launch with cluster 1 (only the split of the fp32 sum over the
+    query heads differs). The plain backward gets the plain forward's out and lse,
+    so that the two kernels together are held against the two plain
+    versions. Returns (the bf16 error of ``main`` at its bq, settings
+    checked)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(41)
     main_err, checked = None, 0
@@ -3918,6 +3957,12 @@ def phase_k1_bwd_parity(fa, settings, main):
                                               return_lse=True, **kw)
                 got = fa.flash_attention_bwd(q, k, v, out, do, lse, bq=bq,
                                              bk=bk, return_visits=True, **kw)
+                again = fa.flash_attention_bwd(q, k, v, out, do, lse, bq=bq,
+                                               bk=bk, **kw)
+                c = fa.bwd_cluster(Hq, Hkv, dtype)
+                one = fa.flash_attention_bwd(q, k, v, out, do, lse, bq=bq,
+                                             bk=bk, cluster=1, **kw) \
+                    if c > 1 else None
                 torch.cuda.synchronize()
                 p_out, _, p_lse = fa.flash_attention_plain(
                     q, k, v, bq=bq, bk=bk, return_lse=True, **kw)
@@ -3927,10 +3972,20 @@ def phase_k1_bwd_parity(fa, settings, main):
                     do.float(), p_lse, bq=bq, bk=bk, **kw)
                 errs = [(a.float() - b).abs().max().item()
                         for a, b in zip(got[:3], want[:3])]
-                close = all(torch.allclose(
-                    a.float(), b, atol=tol,
-                    rtol=0.0 if dtype == torch.float32 else tol)
-                    for a, b in zip(got[:3], want[:3]))
+                rtol = 0.0 if dtype == torch.float32 else tol
+                close = all(torch.allclose(a.float(), b, atol=tol, rtol=rtol)
+                            for a, b in zip(got[:3], want[:3]))
+                same = all(torch.equal(a, b) for a, b in zip(got[:3], again))
+                c1 = ""
+                if one is not None:
+                    close = close and all(torch.allclose(
+                        a.float(), b.float(), rtol=CLUSTER_RTOL,
+                        atol=CLUSTER_ATOL * b.float().abs().max().item())
+                        for a, b in zip(got[1:3], one[1:3]))
+                    c1 = (f", cluster {c} against 1: dk/dv max diff "
+                          f"{max_diff(got[1], one[1]):.3e}/"
+                          f"{max_diff(got[2], one[2]):.3e} (tol "
+                          f"{CLUSTER_RTOL} relative)")
                 geo = dict(causal=kw.get("causal", True),
                            window=kw.get("window"), bq=bq, bk=bk,
                            kv_len=kw.get("kv_len"))
@@ -3948,11 +4003,14 @@ def phase_k1_bwd_parity(fa, settings, main):
                       f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
                       f"{tol}), lse {lse_err:.3e} (tol {FP32_TOL}), visits "
                       f"{'ok' if vis_ok else 'WRONG'}, out with lse "
-                      f"{'bit-equal' if bits else 'DIFFERS'}", flush=True)
-                if not (close and vis_ok and bits and lse_err <= FP32_TOL):
+                      f"{'bit-equal' if bits else 'DIFFERS'}, two calls "
+                      f"{'bit-equal' if same else 'DIFFER'}{c1}", flush=True)
+                if not (close and vis_ok and bits and same and
+                        lse_err <= FP32_TOL):
                     raise AssertionError(f"K1's backward or its lse "
                                          f"disagrees with the plain versions "
-                                         f"(or lse changed out): {name} "
+                                         f"(or lse changed out, or two "
+                                         f"calls or clusters differ): {name} "
                                          f"{dtype} bq={bq}")
                 checked += 1
                 if name == main and dtype == torch.bfloat16 and bq == bq0:
@@ -3997,36 +4055,47 @@ def phase_bwd_timings(fa, rs, attn_block_sizes, name):
     """The backward kernels by ``graph_ms`` (one method for the kernel,
     its plain version and the library call, which cannot come back
     empty) beside their bounds: K1's at the encoder's shape (B=32 S=128
-    12 heads of 64, non-causal) and at Qwen2-0.5B's training shape (B=8
-    S=512, 14 query heads over 2 kv heads of 64, causal), bf16, each at
-    the tiles ``mha_prefill`` picks, beside SDPA's backward (the
-    yardstick, called nowhere in the port: ``autograd.grad`` of its
-    output, GQA as phase 5 calls it, its forward run on the stream the
-    graph captures); K5's at SCAN_MAIN (no library call). The profiler's
-    reading and events over back-to-back calls are printed beside.
-    Returns {shape: (ms, plain ms, library ms, bound ms, bound by)}."""
+    12 heads of 64, non-causal), at Qwen2-0.5B's training shape (B=8
+    S=512, 14 query heads over 2 kv heads of 64, causal) and at the
+    hybrid's (B=2 S=512, 16 query heads over one kv head of 256, causal,
+    window 2048), bf16, each at the tiles ``mha_prefill`` picks and the
+    cluster ``bwd_cluster`` picks, beside SDPA's backward (the yardstick,
+    called nowhere in the port: ``autograd.grad`` of its output, GQA as
+    phase 5 calls it, its forward run on the stream the graph captures;
+    the window spans the whole sequence, so causal is the same mask);
+    K5's at SCAN_MAIN (no library call). The profiler's reading and
+    events over back-to-back calls are printed beside, and, where the
+    group has more than one query head, K1's backward at every cluster
+    size that divides it (the evidence for ``bwd_cluster``'s choice).
+    Returns {shape: (ms, plain ms, library ms, bound ms, bound by)} and
+    {shape + " by cluster": {cluster: ms}}."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(43)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for label, B, S, Hq, Hkv, causal in (
-            ("encoder", MAIN["B"], MAIN["S"], MAIN["H"], MAIN["H"], False),
+    for label, B, S, Hq, Hkv, D, causal, window in (
+            ("encoder", MAIN["B"], MAIN["S"], MAIN["H"], MAIN["H"],
+             MAIN["D"], False, None),
             ("qwen2 train", TRAIN_SHAPE["B"], TRAIN_SHAPE["S"],
-             DECODE_MAIN["Hq"], DECODE_MAIN["Hkv"], True)):
-        D = 64
+             DECODE_MAIN["Hq"], DECODE_MAIN["Hkv"], DECODE_MAIN["D"], True,
+             None),
+            ("hybrid train", HYBRID_TRAIN["B"], HYBRID_TRAIN["S"],
+             HYBRID_MAIN["Hq"], HYBRID_MAIN["Hkv"], HYBRID_MAIN["D"], True,
+             HYBRID_WINDOW)):
         q = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
         k, v = (randn(gen, B, S, Hkv, D, dtype=torch.bfloat16)
                 for _ in range(2))
         do = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
         bq, bk = attn_block_sizes("prefill", S, bh=B * Hq, head_dim=D,
                                   dtype=torch.bfloat16)
-        kw = dict(causal=causal, bq=bq, bk=bk)
+        kw = dict(causal=causal, window=window, bq=bq, bk=bk)
         out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        cluster = fa.bwd_cluster(Hq, Hkv, torch.bfloat16)
 
         def bwd():
             return fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
         t_k = graph_ms(bwd)
-        t_prof = device_ms(bwd, launches=3)
+        t_prof = device_ms(bwd, launches=K1_BWD_BF16_LAUNCHES)
         t_ev = cuda_ms(bwd)
         t_p = graph_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, do, lse, **kw), iters=3, replays=3, warmup=1)
@@ -4042,15 +4111,28 @@ def phase_bwd_timings(fa, rs, attn_block_sizes, name):
             return torch.autograd.grad(ot, (qt, kt, vt), dot,
                                        retain_graph=True)
         t_s = graph_ms(lib, stream=side)
+        G = Hq // Hkv
+        by_c = {str(c): graph_ms(lambda c=c: fa.flash_attention_bwd(
+            q, k, v, out, do, lse, cluster=c, **kw))
+            for c in range(1, min(G, fa.BWD_MAX_CLUSTER) + 1)
+            if G % c == 0} if G > 1 else {}
         bound, by = bwd_bound_ms(B, S, S, Hq, Hkv, D, 2, causal=causal)
+        was = (f"; the CUDA-core design's {K1_BWD_WAS_MS[label]} ms"
+               if label in K1_BWD_WAS_MS else "")
         print(f"timing K1 bwd {label} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-              f"bf16 {'causal' if causal else 'non-causal'} bq={bq} bk={bk}"
-              f", over a captured graph (3 launches a call): kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa backward {t_s:.4f} "
+              f"bf16 {'causal' if causal else 'non-causal'}"
+              f"{f' window {window}' if window else ''} bq={bq} bk={bk} "
+              f"cluster {cluster}, over a captured graph "
+              f"({K1_BWD_BF16_LAUNCHES} launches a call): kernel "
+              f"{t_k:.4f} ms ({t_k / t_s:.2f}x sdpa's backward{was}), "
+              f"plain {t_p:.4f} ms, sdpa backward {t_s:.4f} "
               f"ms, bound {bound:.4f} ms ({by}); kernel by the profiler "
               f"{fmt_ms(t_prof)}, by events over back-to-back calls "
-              f"{t_ev:.4f} ms [{name}]", flush=True)
+              f"{t_ev:.4f} ms; by cluster size "
+              f"{ {c: round(t, 4) for c, t in by_c.items()} } [{name}]",
+              flush=True)
         rows[label] = (t_k, t_p, t_s, bound, by)
+        rows[f"{label} by cluster"] = by_c
     B, S, W = SCAN_MAIN
     a, b = scan_inputs(gen, B, S, W)
     h = rs.rglru_scan(a, b)
@@ -4546,13 +4628,13 @@ def main() -> int:
                       "flash_fwd_bf16", "decode_merge",
                       "decode_split<__nv_bfloat16",       # demangled
                       "decode_splitI13__nv_bfloat16",     # mangled
-                      "mm_wgmma", "mm_split"))
-                  or ("flash_bwd" in n and "bfloat16" in n)}
+                      "mm_wgmma", "mm_split", "flash_bwd_dkdv_bf16",
+                      "flash_bwd_dq_bf16"))}
     spilled = {n: r for n, r in main_insts.items() if r[1] or r[2]}
     mm_insts = [n for n in main_insts if "mm_wgmma" in n or "mm_split" in n]
     bwd_insts = [n for n in main_insts if "flash_bwd" in n]
-    if not main_insts or len(mm_insts) != 12 or len(bwd_insts) != 7 \
-            or spilled:   # 6 + 6; dot, 3 dkdv, 3 dq
+    if not main_insts or len(mm_insts) != 12 or len(bwd_insts) != 12 \
+            or spilled:   # 6 + 6; dkdv and dq at 3 head dims x 2 bq
         raise AssertionError(f"main-path bf16 instantiations spill (or were "
                              f"not all found in the build log: {mm_insts}, "
                              f"{bwd_insts}): {spilled}")
@@ -4950,7 +5032,8 @@ def main() -> int:
     bwd = (fa.flash_attention_bwd, rs.rglru_scan_bwd)
     k1b_err, k1b_checked = phase_k1_bwd_parity(
         fa, k1_settings(attn_block_sizes) + k1_settings_256(
-            attn_block_sizes), main="main shape")
+            attn_block_sizes) + k1_train_settings(attn_block_sizes),
+        main="main shape")
     k5b_err, k5b_checked = phase_k5_bwd_parity(rs)
     bwd_rows = phase_bwd_timings(fa, rs, attn_block_sizes, name)
     tq_cfg, tq_params, train_q, _ = phase_train_qwen2(kernels, bwd, name)
@@ -5102,20 +5185,34 @@ def main() -> int:
         "bound_ms": k1b[3], "bound_by": k1b[4], "library_ms": k1b[2],
         "check": "ok", "settings_checked": k1b_checked,
         "visits_checked": True, "lse_checked": True,
-        "ms_by": "graph_ms (kernel, plain and library, both shapes): 20 "
-                 "calls (3 for the plain version) captured in one CUDA "
-                 "graph, CUDA events around the replays",
+        "ms_by": "graph_ms (kernel, plain and library, all three "
+                 "shapes): 20 calls (3 for the plain version) captured in "
+                 "one CUDA graph, CUDA events around the replays",
         "shape": "B=8 S=512, 14 query heads over 2 kv heads of 64, causal, "
                  "bf16 (Qwen2-0.5B training); library: SDPA's backward",
         "launches_by_path": train_paths(5),
-        "design": "three launches, the forward's tiles, fp32 CUDA-core "
-                  "FMAs: delta = rowsum(dO O) a warp a row; dK/dV a block "
-                  "per (kv tile, kv head) over the group's query heads and "
-                  "live q tiles, 16 rows a step, K/V tiles in shared "
-                  "memory, dK/dV in registers (no atomics); dQ a block "
-                  "per q tile over its live kv tiles",
+        "ms_by_cluster": bwd_rows["qwen2 train by cluster"],
+        "design": "the forward's tiles; bf16: two launches on the "
+                  "mma.sync m16n8k16 tensor cores, FlashAttention-2's "
+                  "backward: dQ (a warp per 16 query rows, delta = "
+                  "rowsum(dO O) first, K/V tiles of the live range through "
+                  "a two-stage cp.async ring), then dK/dV (a warp per 16 "
+                  "kv rows, two warps splitting the columns at D=256; "
+                  "Q/dO/lse/delta streamed by a two-stage cp.async ring; "
+                  "S^T and dP^T as C fragments repacked to bf16 A "
+                  "fragments for dV += P^T dO and dK += dS^T Q; a thread "
+                  "block cluster of c blocks over the query heads of a kv "
+                  "head adding their fp32 partials in rank order through "
+                  "distributed shared memory, no atomics); fp32: three "
+                  "launches of CUDA-core FMAs",
         "registers": registers("flash_attention_bwd", bwd=True),
-        "encoder": hybrid_row(bwd_rows["encoder"])}, {
+        "encoder": hybrid_row(bwd_rows["encoder"]),
+        "head_dim_256": dict(
+            hybrid_row(bwd_rows["hybrid train"]),
+            ms_by_cluster=bwd_rows["hybrid train by cluster"],
+            shape="B=2 S=512, 16 query heads over 1 kv head of 256, "
+                  "causal, window 2048, bf16 (RecurrentGemma-9B's local "
+                  "layers in training)")}, {
         "name": "rglru_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:42",

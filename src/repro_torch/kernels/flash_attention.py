@@ -52,6 +52,10 @@ TILES = {
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+# The bf16 backward's dK/dV kernel takes up to this many blocks a (kv
+# tile, kv head), one thread block cluster (csrc: MAX_CLUSTER, the
+# portable limit), each over its share of the kv head's query heads.
+BWD_MAX_CLUSTER = 8
 
 
 def kernel_tiles(dtype, head_dim):
@@ -223,6 +227,21 @@ def _col_bounds(sq, causal, window, kv_len, device):
     return c_lo, c_hi
 
 
+def bwd_cluster(Hq, Hkv, dtype):
+    """Blocks per (kv tile, kv head) of the backward's dK/dV kernel: one
+    thread block cluster of c blocks, each over Hq / Hkv / c of the kv
+    head's query heads, that add their partials in a fixed order. c is the
+    largest divisor of the group Hq / Hkv up to ``BWD_MAX_CLUSTER`` (on
+    the H100 each larger c measured faster at the training shapes); 1 in
+    fp32 (the CUDA-core kernel has no cluster). At Qwen2-0.5B's 14/2 heads
+    that is 7, at the hybrid's 16/1 8, at the encoder's 12/12 1."""
+    if dtype != torch.bfloat16:
+        return 1
+    G = Hq // Hkv
+    return max(c for c in range(1, min(G, BWD_MAX_CLUSTER) + 1)
+               if G % c == 0)
+
+
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal=True,
                               window=None, softcap=None, kv_len=None, bq=64,
                               bk=None):
@@ -231,7 +250,9 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal=True,
     for each kv tile, the rows of the q tiles whose live range holds it
     recompute P = exp(s - lse) and dP = dout v^T, take dS = P (dP - delta)
     (times 1 - (s/c)^2 under a softcap, zero where masked), and add
-    P^T dout to dV, dS^T q to dK and dS k to dQ. A row with no live column
+    P^T dout to dV, dS^T q to dK and dS k to dQ, with P and dS rounded to
+    the inputs' type before those products, as the bf16 kernel rounds them
+    (the identity in fp32). A row with no live column
     scores its masked columns 0 (see ``_row_lse``). The live tiles are
     decided on the host, so nothing waits on the device (a CUDA graph can
     capture it). Returns (dq, dk, dv in
@@ -290,6 +311,7 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal=True,
         p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
         dp = torch.einsum("bhgid,bhjd->bhgij", gf, vb)
         ds = torch.where(ok & live, p * (dp - delta[..., None]) * dx, 0.0)
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
         dv[:, :, cols] += torch.einsum("bhgij,bhgid->bhjd", p, gf)
         dk[:, :, cols] += torch.einsum("bhgij,bhgid->bhjd", ds, qf)
         dq += torch.einsum("bhgij,bhjd->bhgid", ds, kb)
@@ -417,13 +439,18 @@ def _bwd_lib():
     if fn.argtypes is None:
         i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         fn.restype = i
-        fn.argtypes = [*([p] * 12), *([i] * 12), f, f, p]
+        fn.argtypes = [*([p] * 12), *([i] * 13), f, f, p]
         lib.flash_attention_bwd_block_k.restype = i
         lib.flash_attention_bwd_block_k.argtypes = [i, i]
+        lib.flash_attention_bwd_max_cluster.restype = i
+        lib.flash_attention_bwd_max_cluster.argtypes = []
         for (dtype, d), (_, bk) in TILES.items():
             if lib.flash_attention_bwd_block_k(_DTYPE_CODE[dtype], d) != bk:
                 raise RuntimeError(f"csrc/flash_attention_bwd.cu: the kv "
                                    f"tile for ({dtype}, {d}) is not {bk}")
+        if lib.flash_attention_bwd_max_cluster() != BWD_MAX_CLUSTER:
+            raise RuntimeError(f"csrc/flash_attention_bwd.cu: the largest "
+                               f"cluster is not {BWD_MAX_CLUSTER}")
     return lib
 
 
@@ -432,17 +459,21 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
                         softcap: Optional[float] = None,
                         kv_len: Optional[int] = None, bq: int = 64,
                         bk: Optional[int] = None,
-                        return_visits: bool = False):
+                        return_visits: bool = False,
+                        cluster: Optional[int] = None):
     """The gradients of ``flash_attention`` at the forward's tiles: q,
     k, v, its output ``out`` and ``dout`` (out's cotangent) as the forward
     took them, ``lse`` the forward's ``return_lse`` -> (dq, dk, dv) in the
     inputs' type; with ``return_visits`` also the q-side (B*Hq,
     ceil(Sq/bq)) and kv-side (B*Hq, ceil(Skv/bk)) visit counts
-    (``live_block_counts``, ``live_q_counts``).
+    (``live_block_counts``, ``live_q_counts``). ``cluster`` is the bf16
+    dK/dV kernel's blocks per (kv tile, kv head), default ``bwd_cluster``'s
+    (a divisor of Hq / Hkv up to ``BWD_MAX_CLUSTER``; 1 in fp32): the
+    same function, its fp32 sum over the query heads split elsewhere.
 
     A CPU tensor runs ``flash_attention_bwd_plain``. A CUDA tensor
-    launches the three kernels of ``csrc/flash_attention_bwd.cu`` (on
-    contiguous copies of strided inputs) and adds one to
+    launches the kernels of ``csrc/flash_attention_bwd.cu`` (two in bf16,
+    three in fp32; on contiguous copies of strided inputs) and adds one to
     ``flash_attention_bwd.launches``."""
     if bk is None:
         bk = kernel_tiles(q.dtype, q.shape[-1])[1]
@@ -468,6 +499,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
     Skv, Hkv = k.shape[1], k.shape[2]
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be ({B}, {Hq}, {Sq}) float32")
+    if cluster is None:
+        cluster = bwd_cluster(Hq, Hkv, q.dtype)
+    G = Hq // Hkv
+    if not (1 <= cluster <= BWD_MAX_CLUSTER and G % cluster == 0) or \
+            (q.dtype != torch.bfloat16 and cluster != 1):
+        raise ValueError(f"cluster={cluster} must divide Hq/Hkv={G}, be at "
+                         f"most {BWD_MAX_CLUSTER}, and be 1 in {q.dtype}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
     q_visits = torch.empty((B * Hq, -(-Sq // bq)), dtype=torch.int32,
@@ -481,7 +519,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
             *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq, dk,
                                      dv, kv_visits, q_visits)),
             _DTYPE_CODE[q.dtype], D, bq, bk, B, Hq, Hkv, Sq, Skv, kv_len,
-            int(bool(causal)), window or 0, float(softcap or 0.0),
+            int(bool(causal)), window or 0, cluster, float(softcap or 0.0),
             D ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "

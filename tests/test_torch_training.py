@@ -491,6 +491,66 @@ def test_k1_backward_plain_matches_jax_grad(jx, case):
     assert int(qvis[0].sum()) == int(kvvis[0].sum())
 
 
+# The bf16 plain backward rounds its inputs, the forward's output, P and
+# dS to bf16 (8 bits: 2^-9 relative a rounding) as the kernel does; a few
+# such roundings feed each gradient, measured at 0.2-0.5% of the leaf's
+# largest gradient.
+BF16_GRAD_TOL = 1e-2
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k1_backward_plain_bf16_matches_jax_grad(jx, case):
+    """bf16 inputs through the plain forward and backward (P and dS
+    rounded to bf16 before their products, as the kernel rounds them)
+    against JAX's fp32 ``vjp`` of ``naive_attention`` on the same
+    bf16-rounded inputs, within BF16_GRAD_TOL of each leaf's largest
+    gradient."""
+    jax, jnp = jx["jax"], jx["jnp"]
+    B, Sq, Skv, Hq, Hkv, D, bq, bk, kw = K1_CASES[case]
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in _qkv(B, Sq, Skv, Hq, Hkv, D))
+    out, _, lse = fa.flash_attention_plain(tq, tk, tv, bq=bq, bk=bk,
+                                           return_lse=True, **kw)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, out, tdo, lse, bq=bq,
+                                       bk=bk, **kw)[:3]
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    kv_len = kw.get("kv_len", Skv)
+    q_pos = jnp.broadcast_to(jnp.arange(Sq), (B, Sq))
+    kv_pos = jnp.broadcast_to(jnp.where(jnp.arange(Skv) < kv_len,
+                                        jnp.arange(Skv), -1), (B, Skv))
+
+    def f(a, b, c):
+        return jx["ja"].naive_attention(
+            a, b, c, q_pos, kv_pos, causal=kw["causal"],
+            window=kw.get("window"), softcap=kw.get("softcap"))
+    q, k, v, do = (_np(t) for t in (tq, tk, tv, tdo))
+    ref = jax.jit(lambda a, b, c, g: jax.vjp(f, a, b, c)[1](g))(q, k, v, do)
+    for g, w in zip(got, ref):
+        w = np.asarray(w)
+        np.testing.assert_allclose(_np(g), w,
+                                   atol=BF16_GRAD_TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((14, 2), 7),                      # Qwen2-0.5B
+    ((16, 1), 8),                      # the hybrid's local layers
+    ((12, 12), 1),                     # GECToR-base, G = 1
+    ((24, 2), 6),                      # G = 12: divisors up to 8
+    ((32, 2), 8),                      # G = 16
+    ((10, 1), 5),                      # G = 10
+    ((11, 1), 1),                      # a prime group above 8
+])
+def test_bwd_cluster_plan(shape, want):
+    """The bf16 dK/dV kernel's cluster: the largest divisor of the group
+    up to BWD_MAX_CLUSTER; always 1 in fp32."""
+    Hq, Hkv = shape
+    c = fa.bwd_cluster(Hq, Hkv, torch.bfloat16)
+    assert c == want
+    G = Hq // Hkv
+    assert G % c == 0 and 1 <= c <= fa.BWD_MAX_CLUSTER
+    assert fa.bwd_cluster(Hq, Hkv, torch.float32) == 1
+
+
 def test_k1_backward_through_mha_prefill_on_cpu(jx):
     """autograd through ``ops.mha_prefill`` (the Function: plain forward
     with lse, plain backward) against autograd of the port's
@@ -637,6 +697,43 @@ def test_cuda_k1_backward_matches_plain(case, dtype, tol):
             assert float((a.float() - b).abs().max()) <= tol * scale
         assert torch.equal(got[3].cpu(), want[3].cpu())
         assert torch.equal(got[4].cpu(), want[4].cpu())
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", ["gqa_14_2", "window", "d256"])
+def test_cuda_k1_backward_bits_across_calls_and_clusters(case):
+    """The bf16 kernel at every cluster size that divides the group: two
+    calls bit-equal, dQ the same bits at every size (its kernel has no
+    cluster), dK and dV within bf16's 2e-2 of the plain version at each
+    and within one bf16 rounding (2^-7 relative, plus 2^-16 of the
+    largest value for the fp32 sums' order) of cluster 1's: only where the
+    fp32 sum over the query heads is split differs."""
+    B, Sq, Skv, Hq, Hkv, D, _, _, kw = K1_CASES[case]
+    q, k, v, do = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+                   for x in _qkv(B, Sq, Skv, Hq, Hkv, D))
+    bqs, bk = fa.TILES[(torch.bfloat16, D)]
+    bq = bqs[0]
+    out, lse = fa.flash_attention(q, k, v, bq=bq, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, bq=bq, bk=bk,
+                                        **kw)
+    G = Hq // Hkv
+    first = None
+    for c in [c for c in range(1, fa.BWD_MAX_CLUSTER + 1) if G % c == 0]:
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, bq=bq, bk=bk,
+                                     cluster=c, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, bq=bq, bk=bk,
+                                       cluster=c, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        first = first or got
+        assert torch.equal(got[0], first[0])
+        for a, b in zip(got, want):
+            scale = float(b.float().abs().max())
+            assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale
+        for a, b in zip(got[1:3], first[1:3]):
+            scale = float(b.float().abs().max())
+            assert torch.allclose(a.float(), b.float(), rtol=2 ** -7,
+                                  atol=2 ** -16 * scale)
 
 
 @requires_cuda
