@@ -228,6 +228,39 @@ Phases (each raises on failure; nothing is caught):
      serving the tokens of the tree in memory; (h) printed only: the
      spec bench's target and a one-layer draft trained 60 steps, their
      accept rate through the spec engine beside the untrained pair's.
+ 29. (after phase 28, with GECToR's and Qwen2's trees freed) K1 and K2
+     at the new models' shapes against their plain versions, by phase 2
+     and 6's rules (fp32 1e-4, bf16 2e-2 against fp32, visits exact):
+     head dims 128 and 160, causal and not, a window, a softcap, a
+     kv_len, GQA (stablelm's 32/8 and gemma2's 32/16, softcap 50),
+     explicit split counts; then timed by ``graph_ms`` beside their
+     bounds, plain versions and SDPA: K1 at stablelm's prefill (B=16
+     S=512 32/8 of 160) and gemma2's (B=8 S=512 32/16 of 128, softcap
+     50, SDPA without), K2 at B=16 over 576 fp32 slots at both models'
+     heads; K3/K4 timed at stablelm's projections (M = 16 and 4096;
+     phase 10 holds them against their plain versions there);
+ 30. stablelm-12b at full width and depth (40 layers, head dim 160,
+     ``init_params(seed=0)``): 32 requests (16 in bucket 128, 16 of
+     129-500 tokens in bucket 512, half sampled) through the default
+     continuous decoder at max_batch 16, 32 new tokens, served twice
+     (the first pass captures each program at its first, uncaptured
+     call; the second replays): the passes' streams equal, the second
+     pass's K1/K2 (and K3) launches those of its joins and steps; float,
+     then int8 W+KV; phase 21's rule (a decode step program at B=16,
+     greedy and sampled, captured against uncaptured) and phase 22's
+     (row 0 at join sizes 1 and 16 and decode widths 1 and 16) on the
+     float and the int8 tree; then ``prefill_chunk=128`` with the prefix
+     cache over a 256-token system prompt, warm hits equal to cold;
+ 31. gemma2-27b, with less than 2 GB left allocated: (a) one period
+     (local + global, full width) against its fp32 copy by phase 7's
+     rule on a 4608-token prompt past the window, then all 46 layers
+     (the fused ``wqkv``) through K1 against plain attention on the
+     last 64 positions; (c) ``long_ctx`` at one period: a global ring
+     capped at 32,768 slots filled past the cap, K2 on it against its
+     plain version, and 8 decode steps by phase 7's rule; (b) 16
+     requests (one of 500 tokens, chunk by chunk) through the
+     continuous decoder at max_batch 8, ``prefill_chunk=128``, served
+     twice as in phase 30, and phase 21's and 22's rules at width 8.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its design and
 its instantiations' registers), then as the last line
@@ -238,6 +271,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc as gc_mod
 import json
 import re
 import shutil
@@ -1615,16 +1649,18 @@ def phase_encoder_int8_engine(cfg, params, kernels, rng):
     return launches, batch_sizes, weight_bytes
 
 
-def phase_matmul_timings(i8, shapes, name):
+def phase_matmul_timings(i8, shapes, name, int8pack=True):
     """K3 and K4 by device time at the main paths' shapes, bf16 x, beside
     the bound, the plain version and one PyTorch call as the yardstick:
     ``torch.matmul`` of x with the weight dequantized beforehand to bf16
     (the float path's GEMM; the port never calls it) and, where this
-    PyTorch has it on CUDA, ``torch._weight_int8pack_mm`` (its scales are
-    bf16). Each kernel's time is printed as a factor of ``torch.matmul``
-    beside its target (not gated). Returns {(M, K, N): (K3 row, K4 row)},
-    a row (ms, plain ms, bound ms, bound by, library ms); a kernel's ms is
-    its event time where the profiler saw no kernel."""
+    PyTorch has it on CUDA and ``int8pack`` asks for it,
+    ``torch._weight_int8pack_mm`` (its scales are bf16; over a second a
+    call at stablelm-12b's M=4096 ``w_in``). Each kernel's time is printed
+    as a factor of ``torch.matmul`` beside its target (not gated).
+    Returns {(M, K, N): (K3 row, K4 row)}, a row (ms, plain ms, bound ms,
+    bound by, library ms); a kernel's ms is its event time where the
+    profiler saw no kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
     rows = {}
@@ -1642,8 +1678,8 @@ def phase_matmul_timings(i8, shapes, name):
         t3p = device_ms(lambda: i8.int8_matmul_plain(x, qw, scale), iters=5)
         t4p = device_ms(lambda: i8.cache_matmul_plain(x, w), iters=5)
         t_lib = device_ms(lambda: torch.matmul(x, w))
-        pack = "not in this PyTorch"
-        if hasattr(torch, "_weight_int8pack_mm"):
+        pack = "not in this PyTorch" if int8pack else "not timed"
+        if int8pack and hasattr(torch, "_weight_int8pack_mm"):
             qt, sb = qw.t().contiguous(), scale.to(torch.bfloat16)
             try:   # a yardstick only: the port never calls it
                 torch._weight_int8pack_mm(x, qt, sb)
@@ -2487,8 +2523,11 @@ def phase_continuous_long(cfg, params, name, *, quant=None):
 def tier_timings(eng, bucket, name, tag):
     """The smallest and the largest width tier's decode segment
     (``decode_segment`` steps) of the engine's bucket, captured (a replay
-    of its program) and the same program called uncaptured: wall,
-    kernels and device idle share. Returns {width: captured reading}."""
+    of its program: wall, kernels and device idle share) and the same
+    program called uncaptured: at the largest width wall, kernels and
+    idle share, at the smallest the wall alone (the profiler's summary of
+    an eager segment takes tens of seconds). Returns {width: captured
+    reading}."""
     out = {}
     for width in (eng._tiers[0], eng._tiers[-1]):
         slots = list(range(width))
@@ -2510,11 +2549,13 @@ def tier_timings(eng, bucket, name, tag):
         def direct():
             with torch.inference_mode():
                 return fn(*dev, None, None, None, idx, src)
-        unc = program_reading(direct, n=1, n_wall=3)
+        if width == eng._tiers[-1]:
+            unc = fmt_reading(program_reading(direct, n=1, n_wall=3))
+        else:
+            unc = f"wall {sync_wall_ms(direct, n=3, warmup=1):.4f} ms"
         print(f"continuous{tag} segment bucket {bucket} width {width} "
               f"({eng.ec.decode_segment} steps): captured "
-              f"{fmt_reading(cap)}; uncaptured {fmt_reading(unc)} "
-              f"[{name}]", flush=True)
+              f"{fmt_reading(cap)}; uncaptured {unc} [{name}]", flush=True)
         out[width] = cap
     return out
 
@@ -3712,7 +3753,8 @@ def phase_spec_model(cfg, params, qparams, name):
                             plain, head_w=w, decode_width=CONT_BATCH)
                             for s in range(k + 1)], 1)
                         got = verify_chunk(cfg, prm, chunk, pos, spec,
-                                           head_w=w, partition=part)
+                                           head_w=w, partition=part,
+                                           decode_width=CONT_BATCH)
                         if not torch.equal(got, want):
                             raise AssertionError(
                                 f"27 (b) {label}: verify logits differ from "
@@ -4574,6 +4616,668 @@ def phase_spec_trained(name):
           f"{time.perf_counter() - t_phase:.1f} s [{name}]", flush=True)
 
 
+# ------------------------------------- 29-31. stablelm-12b and gemma2-27b
+# The new models' attention shapes: stablelm-12b's head dim of 160 (32
+# query heads over 8 kv heads) and gemma2-27b's 128 with two query heads
+# a kv head, a softcap of 50 and a local window of 4096
+STABLELM = dict(Hq=32, Hkv=8, D=160)
+GEMMA2 = dict(Hq=32, Hkv=16, D=128, softcap=50.0, window=4096)
+STABLELM_PREFILL = dict(B=16, S=512)     # K1 timed at these
+GEMMA2_PREFILL = dict(B=8, S=512)
+NEW_DECODE = dict(B=16, L=576)           # K2 timed over these rings
+BIG_NEW = 32                             # new tokens a request, 30-31
+BIG_BUCKETS = (128, 512)
+LONG_PROMPT = 4608                       # 31 (a): past gemma2's window
+LONG_CTX_STEPS = 8                       # 31 (c): decode steps past the cap
+LAST_ROWS = 512                          # 31 (a): logit rows compared
+
+
+def k1_settings_new(attn_block_sizes):
+    """Phase 29's K1 settings at head dims 128 and 160, phase 2's kinds,
+    gemma2's two query heads a kv head under a window and a softcap, and
+    the two prefill shapes timed after them at the bq the model takes."""
+    def bq(p, m):
+        return attn_block_sizes("prefill", p["S"], bh=p["B"] * m["Hq"],
+                                head_dim=m["D"], dtype=torch.bfloat16)[0]
+    s, g = STABLELM, GEMMA2
+    settings = []
+    for D in (128, 160):
+        settings += [  # (name, B, Sq, Skv, Hq, Hkv, D, bq, kwargs)
+            (f"D={D} non-causal kv_len<Skv", 2, 160, 160, 8, 8, D, 64,
+             dict(causal=False, kv_len=131)),
+            (f"D={D} causal GQA G=4", 2, 256, 256, 32, 8, D, 64,
+             dict(causal=True)),
+            (f"D={D} window 64 softcap 50", 2, 256, 256, 8, 4, D, 32,
+             dict(causal=True, window=64, softcap=50.0)),
+            (f"D={D} Sq != Skv", 3, 100, 228, 8, 8, D, 64,
+             dict(causal=False)),
+            (f"D={D} fully masked rows", 2, 160, 160, 4, 4, D, 32,
+             dict(causal=True, window=8, kv_len=100))]
+    return settings + [
+        ("D=128 G=2 window 100 softcap 50", 2, 300, 300, 32, 16, 128, 64,
+         dict(causal=True, window=100, softcap=50.0)),
+        ("stablelm prefill", STABLELM_PREFILL["B"], 512, 512, s["Hq"],
+         s["Hkv"], s["D"], bq(STABLELM_PREFILL, s),
+         dict(causal=True, kv_len=512)),
+        ("gemma2 prefill", GEMMA2_PREFILL["B"], 512, 512, g["Hq"], g["Hkv"],
+         g["D"], bq(GEMMA2_PREFILL, g),
+         dict(causal=True, window=g["window"], softcap=g["softcap"],
+              kv_len=512))]
+
+
+def k2_settings_new():
+    """Phase 29's K2 settings: phase 6's kinds at stablelm's heads (32 / 8
+    of 160) and gemma2's (32 / 16 of 128, softcap 50), explicit split
+    counts at D = 160, and both decode shapes timed after them."""
+    settings = []
+    for D, Hq, Hkv, kw in ((160, 32, 8, {}), (128, 32, 16,
+                                              dict(softcap=50.0))):
+        tag = f"D={D} G={Hq // Hkv}"
+        settings += [  # (name, B, L, Hq, Hkv, D, kv_pos pattern, kwargs)
+            (f"{tag} full cache", 4, 128, Hq, Hkv, D, "full", kw),
+            (f"{tag} short prefix", 4, 1024, Hq, Hkv, D, "prefix", kw),
+            (f"{tag} wrapped ring", 4, 160, Hq, Hkv, D, "ring", kw),
+            (f"{tag} empty slots", 4, 256, Hq, Hkv, D, "holes", kw),
+            (f"{tag} window 64", 4, 512, Hq, Hkv, D, "ring",
+             dict(kw, window=64)),
+            (f"{tag} ragged L=157", 5, 157, Hq, Hkv, D, "ring", kw)]
+    n = NEW_DECODE
+    return settings + k2_split_settings(160, 32, 8) + [
+        ("stablelm decode", n["B"], n["L"], STABLELM["Hq"],
+         STABLELM["Hkv"], STABLELM["D"], "full", {}),
+        ("gemma2 decode", n["B"], n["L"], GEMMA2["Hq"], GEMMA2["Hkv"],
+         GEMMA2["D"], "full", dict(softcap=GEMMA2["softcap"]))]
+
+
+def phase_new_shape_timings(fa, da, attn_block_sizes, name):
+    """29 (b). K1 at stablelm's prefill (B=16, S=512, 32 / 8 heads of 160,
+    causal) and gemma2's (B=8, S=512, 32 / 16 of 128, causal, softcap 50,
+    window 4096), and K2 at B=16 over 576 slots at both models' heads
+    (bf16 q, fp32 ring; gemma2's with its softcap), each by ``graph_ms``
+    beside its bound, its plain version (profiler device time) and SDPA
+    (``graph_ms``; SDPA has no softcap, so gemma2's reads SDPA without
+    one). Returns {label: (ms, plain ms, sdpa ms, bound ms, bound by)}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    rows = {}
+    for label, m, p in (("stablelm prefill", STABLELM, STABLELM_PREFILL),
+                        ("gemma2 prefill", GEMMA2, GEMMA2_PREFILL)):
+        B, S, Hq, Hkv, D = p["B"], p["S"], m["Hq"], m["Hkv"], m["D"]
+        q = randn(gen, B, S, Hq, D, dtype=bf16)
+        k, v = (randn(gen, B, S, Hkv, D, dtype=bf16) for _ in range(2))
+        kw = dict(causal=True, window=m.get("window"),
+                  softcap=m.get("softcap"))
+        bq = attn_block_sizes("prefill", S, bh=B * Hq, head_dim=D,
+                              dtype=bf16)[0]
+        t_k = graph_ms(lambda: fa.flash_attention(q, k, v, bq=bq, **kw))
+        t_p = device_ms(lambda: fa.flash_attention_plain(q, k, v, bq=bq,
+                                                         **kw), iters=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t_s = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                    enable_gqa=True))
+        bound, by = attn_bound_ms(B, S, S, Hq, Hkv, D, 2, causal=True)
+        print(f"timing K1 {label} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+              f"{kw} bq={bq}: kernel over a captured graph of 20 calls "
+              f"{t_k:.4f} ms, plain (device time) {fmt_ms(t_p)}, sdpa "
+              f"(graph{', no softcap' if 'softcap' in m else ''}) "
+              f"{t_s:.4f} ms, bound {bound:.4f} ms ({by}) [{name}]",
+              flush=True)
+        rows[label] = (t_k, t_p, t_s, bound, by)
+    for label, m in (("stablelm decode", STABLELM), ("gemma2 decode",
+                                                     GEMMA2)):
+        B, L, Hq, Hkv, D = (NEW_DECODE["B"], NEW_DECODE["L"], m["Hq"],
+                            m["Hkv"], m["D"])
+        q = randn(gen, B, 1, Hq, D, dtype=bf16)
+        k, v = (randn(gen, B, L, Hkv, D, dtype=torch.float32)
+                for _ in range(2))
+        q_pos = np.full(B, L - 1, np.int32)
+        kv_pos = np.tile(np.arange(L, dtype=np.int32), (B, 1))
+        qp, kvp = (torch.from_numpy(x).cuda() for x in (q_pos, kv_pos))
+        sc = m.get("softcap")
+        t_k = graph_ms(lambda: da.decode_attention(q, k, v, qp, kvp,
+                                                   softcap=sc))
+        t_p = device_ms(lambda: da.decode_attention_plain(
+            q, k, v, qp, kvp, softcap=sc), iters=3)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.to(bf16).transpose(1, 2) for x in (k, v))
+        mask = ((kvp >= 0) & (kvp <= qp[:, None]))[:, None, None, :]
+        t_s = graph_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                    enable_gqa=True))
+        bound, by = decode_bound_ms(q_pos, kv_pos, Hq, Hkv, D, 2, 4)
+        print(f"timing K2 {label} B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+              f"q fp32 ring softcap {sc}, {da.decode_splits(B, Hkv, L)[0]} "
+              f"splits: kernel over a captured graph of 20 calls "
+              f"{t_k:.4f} ms, plain (device time) {fmt_ms(t_p)}, sdpa "
+              f"(graph{', no softcap' if sc else ''}) {t_s:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}) [{name}]", flush=True)
+        rows[label] = (t_k, t_p, t_s, bound, by)
+    return rows
+
+
+def big_load(cfg, seed, n_short, long_lens, lo=8, hi=120):
+    """``n_short`` prompts of ``lo``..``hi`` tokens and one of each length
+    in ``long_lens``, every other one sampled (temperature 0.8, top_k 50,
+    its own seed), shuffled."""
+    from repro_torch.serving.api import SamplingParams
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(lo, hi + 1)) for _ in range(n_short)]
+    load = [(rng.integers(0, cfg.vocab_size, n),
+             SamplingParams(temperature=0.8, top_k=50, seed=i) if i % 2
+             else SamplingParams())
+            for i, n in enumerate(lens + list(long_lens))]
+    return [load[i] for i in rng.permutation(len(load))]
+
+
+def serve_twice(cfg, params, kernels, ec, load, label, name):
+    """A continuous engine (``ec``) serves ``load`` twice, all requests at
+    once: the first pass captures each program at its first call (which
+    runs uncaptured), the second replays them. Every request's tokens of
+    the two passes must be equal, and the second pass's K1/K2 (and, with
+    int8 weights, K3) launches must match its whole-prompt joins and
+    decode steps. Returns the second pass's K1..K5 launches."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    eng = ServingEngine(cfg, params, EngineConfig(**ec), device="cuda")
+    try:
+        t0 = time.perf_counter()
+        first, _ = serve_load(eng, load, 0.0)
+        t_first = time.perf_counter() - t0
+        captures = eng.metrics()["jit_compiles"]
+        eng.window()
+        reset_launches(kernels)
+        second, wall = serve_load(eng, load, 0.0)
+        launches = tuple(fn.launches for fn in kernels)
+        win = eng.window()
+        ecfg = eng.ec
+    finally:
+        eng.close()
+    # the engine and its scheduler form a cycle: free its pools and
+    # graphs now, before the next engine
+    del eng
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(first, second))
+    n_tok = sum(len(r.tokens) for r in second)
+    steps = ecfg.decode_segment * win["decode_segments"]
+    L = cfg.n_layers
+    want = (L * win["prefill_batches"], L * steps,
+            6 * L * (win["prefill_batches"] + steps)
+            if ecfg.weight_quant else 0, 0, 0)
+    print(f"{label}: first pass (captures {captures} programs as they "
+          f"come) {t_first:.1f} s; second pass (replays) {len(load)} "
+          f"requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+          f"tokens/s; {same} of {len(load)} token-identical across the "
+          f"passes; window: prefill batches {win['prefill_batches']}, "
+          f"prefill_chunks {win['prefill_chunks']}, decode segments "
+          f"{win['decode_segments']}, weight_bytes {win['weight_bytes']:,};"
+          f" K1..K5 launches {launches} (joins and steps give {want}) "
+          f"[{name}]", flush=True)
+    if same != len(load) or launches[:3] != want[:3] or 0 in launches[:2]:
+        raise AssertionError(f"{label}: {same} of {len(load)} streams "
+                             f"equal across passes, launches {launches} "
+                             f"!= {want}")
+    return launches
+
+
+def big_program_gates(cfg, params, label, name, *, width, bucket=128,
+                      kv_quant=None):
+    """Phase 21's and 22's rules at a big model's serving shapes: one
+    decode step program at B = ``width`` in caches of bucket + BIG_NEW
+    slots (forward in decode mode and token selection, greedy and
+    sampled) captured against the same call uncaptured, bit for bit; row
+    0's prefill hidden state and first-token logits alone (join size 1)
+    and in a join of ``width``, each padded as the engine pads it; row
+    0's decode-step logits at widths 1 and ``width``, both at
+    ``width``'s K2 split count (``decode_width``, as the engine runs).
+    The captured step is read by the profiler (wall, kernels, device
+    idle), the uncaptured one by the host clock only (the profiler's
+    summary of an eager 40-layer step took seconds)."""
+    from repro_torch.models import forward, make_caches, sample_logits
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.graphs import GraphCache
+    rng = np.random.default_rng(300 + width)
+    L = bucket + BIG_NEW
+    _, toks, lens = prompt_batch(rng, width, 8, bucket - 8, bucket,
+                                 cfg.vocab_size)
+    tt = torch.from_numpy(toks).cuda()
+    lt = torch.from_numpy(lens).cuda()
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    out = {}
+    with torch.inference_mode():
+        def prefill_row0(idx):
+            caches = make_caches(cfg, len(idx), L, dtype=torch.float32,
+                                 kv_quant=kv_quant, device="cuda")
+            hid = forward(cfg, params, tokens=tt[idx], caches=caches,
+                          return_hidden=True)
+            last = hid[torch.arange(len(idx), device="cuda"),
+                       lt[idx] - 1][:, None]
+            return hid, lm_head_apply(cfg, None, last, w=w)[:, 0], caches
+        rows = {n: ServingEngine._prefill_rows(n, bucket)
+                for n in (1, width)}
+        ref = prefill_row0(list(range(width)) + [0] * (rows[width] - width))
+        one = prefill_row0([0] * rows[1])
+        out["prefill"] = (max_diff(one[0][0, :lens[0]],
+                                   ref[0][0, :lens[0]]),
+                          max_diff(one[1][0], ref[1][0]))
+        caches = ref[2]
+        tok = ref[1].argmax(-1).to(torch.int32)[:, None]
+        del one, ref
+
+        def step(width_, dw):
+            sub = slice_caches(caches, width_)
+            return forward(cfg, params, tokens=tok[:width_],
+                           positions=lt[:width_, None], caches=sub,
+                           mode="decode", head_w=w, decode_width=dw)[0, 0]
+        out["decode"] = max_diff(step(1, width), step(width, width))
+        gc = GraphCache("cuda")
+        temp = torch.full((width,), 0.8, device="cuda")
+        topk = torch.full((width,), 50, dtype=torch.int32, device="cuda")
+        seed = torch.arange(width, dtype=torch.int32, device="cuda")
+
+        def prog(t, p, tm, tk, sd):
+            lg = forward(cfg, params, tokens=t, positions=p, caches=caches,
+                         mode="decode", head_w=w)[:, 0]
+            return {"logits": lg,
+                    "tok": sample_logits(lg, temperature=tm, top_k=tk,
+                                         seed=sd, positions=p[:, 0] + 1)}
+        pos = lt[:, None]
+        for mode, sargs in (("greedy", (None, None, None)),
+                            ("sampled", (temp, topk, seed))):
+            args = (tok[:width], pos, *sargs)
+            diff = replay_diff(gc, ("step", mode), prog, args, prog(*args))
+            cap = program_reading(lambda: gc.run(("step", mode), prog,
+                                                 *args))
+            unc = sync_wall_ms(lambda: prog(*args), n=3, warmup=1)
+            print(f"{label} decode step program B={width} L={L}, {mode}: "
+                  f"captured replay vs direct uncaptured call: max "
+                  f"difference {diff} (replayed in sync debug mode "
+                  f"'error'); captured {fmt_reading(cap)}; uncaptured "
+                  f"wall {unc:.4f} ms [{name}]", flush=True)
+            if diff != 0:
+                raise AssertionError(f"{label} {mode}: the captured step "
+                                     f"differs from the uncaptured call")
+        del caches
+    print(f"{label}: row 0's prefill (hidden, first-token logits) at join "
+          f"size 1 vs {width}, padded as the engine pads (M = "
+          f"{rows[1] * bucket} vs {rows[width] * bucket}): "
+          f"{out['prefill']}; its decode-step logits at width 1 vs {width} "
+          f"(decode_width={width}): {out['decode']}", flush=True)
+    if out["prefill"] != (0.0, 0.0) or out["decode"] != 0.0:
+        raise AssertionError(f"{label}: a row's bits follow its batch: "
+                             f"{out}")
+
+
+def phase_stablelm(kernels, name):
+    """30. stablelm-12b at full width and depth (40 layers, head dim 160,
+    random weights from ``init_params(seed=0)``), bf16, through the
+    default continuous decoder (max_batch 16, buckets 128 and 512, 32 new
+    tokens): 32 requests, 16 of 8-120 tokens and 16 of 129-500, half
+    greedy, half sampled (top_k 50), served twice (``serve_twice``),
+    float and then int8 weights and KV (K3 at K = 5120 and 13824); phase
+    21's and 22's rules on the float and the int8 tree at width 16; then
+    one engine with ``prefill_chunk=128`` and the prefix cache, 6
+    prompts sharing a 256-token system prompt served one by one, whose
+    warm hits must equal a cold engine's tokens. Returns {path: K1..K5
+    launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import quantize_params
+    cfg = get_config("stablelm-12b")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"stablelm-12b: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim_}, drawn in "
+          f"{time.perf_counter() - t0:.1f} s; {mem0:,} B allocated before",
+          flush=True)
+    rng = np.random.default_rng(30)
+    load = big_load(cfg, 30, 16, [int(x) for x in rng.integers(129, 501,
+                                                              16)])
+    base = dict(mode="decoder", max_batch=16, pad_buckets=BIG_BUCKETS,
+                max_new_tokens=BIG_NEW)
+    out = {}
+    for quant in (None, "int8"):
+        label = "stablelm-12b" + (" int8 W+KV" if quant else "")
+        out[label] = serve_twice(cfg, params, kernels,
+                                 dict(base, weight_quant=quant,
+                                      kv_quant=quant), load, label, name)
+    print(f"stablelm-12b: engines {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    big_program_gates(cfg, params, "stablelm-12b", name, width=16)
+    qparams = quantize_params(params)
+    big_program_gates(cfg, qparams, "stablelm-12b int8 W+KV", name,
+                      width=16, kv_quant="int8")
+    del qparams
+    print(f"stablelm-12b: program gates {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out["stablelm-12b prefix"] = big_prefix(cfg, params, kernels, base,
+                                            name)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    print(f"stablelm-12b: peak device memory {peak:,} B over the phase's "
+          f"start; phase {time.perf_counter() - t0:.1f} s [{name}]",
+          flush=True)
+    del params
+    return out
+
+
+def big_prefix(cfg, params, kernels, base, name):
+    """30 (c). ``prefill_chunk=128`` and the prefix cache in bucket 512:
+    6 greedy prompts of a 256-token system prompt (two whole chunks)
+    plus 1..64 tokens, served one by one; the cold engine
+    (``prefix_cache=False``) fills every prompt chunk by chunk, the warm
+    one stores the first and serves the 5 others from a hit. Every warm
+    stream must equal the cold one; 5 hits, 1 miss, 1 insert."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    rng = np.random.default_rng(31)
+    sysp = rng.integers(0, cfg.vocab_size, 256)
+    prompts = [np.concatenate([sysp, rng.integers(
+        0, cfg.vocab_size, int(rng.integers(1, 65)))]) for _ in range(6)]
+    ec = dict(base, pad_buckets=(512,), prefill_chunk=128)
+    res = {}
+    for on in (False, True):
+        eng = ServingEngine(cfg, params, EngineConfig(**ec,
+                                                      prefix_cache=on),
+                            device="cuda")
+        try:
+            reset_launches(kernels)
+            res[on] = one_by_one(eng, prompts) + (
+                tuple(fn.launches for fn in kernels),)
+        finally:
+            eng.close()
+    (cold, _, _), (warm, win, launches) = res[False], res[True]
+    same = sum(np.array_equal(a.tokens, b.tokens) for a, b in zip(cold,
+                                                                  warm))
+    lane = win["lanes"][512]
+    counts = {k: lane[k] for k in ("prefix_hits", "prefix_misses",
+                                    "prefix_inserts")}
+    print(f"stablelm-12b prefix: {same} of {len(prompts)} warm streams "
+          f"token-identical to cold; counters {counts}, prefill_chunks "
+          f"{lane['prefill_chunks']}; K1..K5 launches {launches} [{name}]",
+          flush=True)
+    if same != len(prompts) or counts != {"prefix_hits": 5,
+                                          "prefix_misses": 1,
+                                          "prefix_inserts": 1}:
+        raise AssertionError(f"stablelm-12b prefix: {same} equal, "
+                             f"{counts}")
+    return launches
+
+
+def bf16_rule(readings, rows, label):
+    """Phase 7's gate on {path: (max abs err, mean abs err, top-1 flips)}
+    against fp32 over ``rows`` rows: the kernel path's errors at most
+    LOGIT_ERR_FACTOR x the plain path's, its flips at most
+    TOP1_FLIP_FACTOR x plain's (or 1% of the rows)."""
+    (k_max, k_mean, k_flips) = readings["kernels bf16"]
+    (p_max, p_mean, p_flips) = readings["plain bf16"]
+    if (k_max > LOGIT_ERR_FACTOR * p_max
+            or k_mean > LOGIT_ERR_FACTOR * p_mean
+            or k_flips > max(TOP1_FLIP_FACTOR * p_flips, 0.01 * rows)):
+        raise AssertionError(
+            f"{label}: the kernel path strays further from fp32 than plain "
+            f"attention: max {k_max:.3e} vs {p_max:.3e}, mean {k_mean:.3e} "
+            f"vs {p_mean:.3e}, flips {k_flips} vs {p_flips}")
+
+
+def against_fp32(logits, label, what):
+    """{path: (max, mean, flips)} of the bf16 paths' logits against the
+    fp32 path's (each (rows, V) over the real vocabulary), printed."""
+    ref = logits["fp32"]
+    out = {}
+    for path in ("kernels bf16", "plain bf16"):
+        got = logits[path]
+        if not torch.isfinite(got).all() or got.shape != ref.shape:
+            raise AssertionError(f"{label} {path}: non-finite or misshapen")
+        d = (got - ref).abs()
+        out[path] = (d.max().item(), d.mean().item(),
+                     int((got.argmax(-1) != ref.argmax(-1)).sum()))
+        print(f"{label} {path:12s} vs fp32, {what}: logits max_abs_err "
+              f"{out[path][0]:.4e}, mean {out[path][1]:.4e}, top-1 flips "
+              f"{out[path][2]} of {ref.shape[0]}", flush=True)
+    return out
+
+
+def hidden_fp32_by_layer(cfg, params, tokens):
+    """``forward(cfg32, to_fp32(params), tokens=tokens, return_hidden=True,
+    plain_attention=True)`` for a bf16 tree too large to copy whole to
+    fp32 (gemma2-27b's 46 layers: 104 GB): ``forward``'s full mode step by
+    step, each block's weights cast to fp32 only while it runs."""
+    from repro_torch.models import transformer as tm
+    from repro_torch.models.layers import (apply_norm, embed_apply,
+                                           rope_angles)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    if c32.abs_pos:
+        raise ValueError("hidden_fp32_by_layer: no absolute positions")
+    x = embed_apply(c32, params["embed"], tokens)
+    if c32.embed_scale:
+        x = x * torch.tensor(c32.d_model ** 0.5, dtype=torch.float32).item()
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    rope = (None if c32.attn.rope_base is None else
+            rope_angles(positions, c32.head_dim_, c32.attn.rope_base))
+    for j, kind in enumerate(c32.pattern):
+        blk = params["blocks"][f"blk{j}"]
+        for i in range(c32.n_periods):
+            x = tm._apply_block(c32, kind, to_fp32(tm._index_tree(blk, i)),
+                                x, positions, None, mode="full", causal=True,
+                                plain_attention=True, plain_matmul=False,
+                                rope=rope)
+    return apply_norm(c32, to_fp32(params["final_norm"]), x)
+
+
+def phase_gemma2_period(da, name):
+    """31 (a) and (c) at one period of gemma2-27b (an attn_local and an
+    attn_global layer, full width, random weights from ``init_params(
+    seed=0)`` of the cut config), in bf16 through the kernels and plain
+    attention against its fp32 copy, by phase 7's rule: (a) a 4608-token
+    prompt at B=1, past the window of 4096, on the last 512 positions'
+    logits; (c) ``long_ctx``: caches of max_len 65536 hold a local ring
+    of 4096 and a global ring capped at 32,768 slots, filled with random
+    K/V at positions past the cap, then 8 teacher-forced decode steps;
+    and K2 on that global ring against its plain version, timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, make_caches
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    cfg = dataclasses.replace(get_config("gemma2-27b"), n_layers=2)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = init_params(cfg, 0, device="cuda")
+    p32 = to_fp32(p)
+    paths = {"kernels bf16": (cfg, p, False), "plain bf16": (cfg, p, True),
+             "fp32": (cfg32, p32, True)}
+    V = cfg.vocab_size
+    rng = np.random.default_rng(311)
+    toks = torch.from_numpy(rng.integers(0, V, (1, LONG_PROMPT))).cuda()
+    logits = {}
+    with torch.inference_mode():
+        for path, (c, pp, plain) in paths.items():
+            hid = forward(c, pp, tokens=toks, return_hidden=True,
+                          plain_attention=plain)[:, -LAST_ROWS:]
+            w = head_weight(c, None, pp["embed"])
+            logits[path] = lm_head_apply(c, None, hid, w=w)[0, :, :V]
+            del hid, w
+    bf16_rule(against_fp32(logits, "gemma2-27b one period",
+                           f"a {LONG_PROMPT}-token prompt, last {LAST_ROWS} "
+                           f"positions"), LAST_ROWS, "31 (a)")
+    del logits
+    # (c): long_ctx past the cap
+    B, max_len = 2, 65536
+    cap = cfg.attn.long_ctx_window_cap
+    last = np.array([40_000 + 777 * b for b in range(B)])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(312)
+    fill = make_caches(cfg, B, max_len, long_ctx=True, dtype=torch.float32,
+                       device="cuda")
+    for blk in fill.values():
+        n = blk["k"].shape[2]
+        for key in ("k", "v"):
+            blk[key].normal_(generator=gen)
+        for b in range(B):
+            ps = torch.arange(last[b] - n + 1, last[b] + 1, device="cuda",
+                              dtype=torch.int32)
+            blk["pos"][:, b, ps.long() % n] = ps
+        blk["len"].copy_(torch.from_numpy(last + 1).cuda().expand(1, B))
+    shapes = {b: tuple(blk["k"].shape) for b, blk in fill.items()}
+    # K2 over the filled global ring at the step's position, and timed
+    ring = fill["blk1"]
+    q = randn(gen, B, 1, cfg.n_heads, cfg.head_dim_, dtype=torch.bfloat16)
+    qp = torch.from_numpy(last + 1).to(torch.int32).cuda()
+    kw = dict(window=cap, softcap=cfg.attn.logit_softcap)
+    k, v, kvp = ring["k"][0], ring["v"][0], ring["pos"][0]
+    out, visits = da.decode_attention(q, k, v, qp, kvp, return_visits=True,
+                                      **kw)
+    torch.cuda.synchronize()
+    n_split = da.decode_splits(B, cfg.n_kv_heads, cap)[0]
+    ref, ref_visits = da.decode_attention_plain(
+        q.float(), k.to(torch.bfloat16).float(), v.to(torch.bfloat16).float(),
+        qp, kvp, n_split=n_split, **kw)
+    err = (out.float() - ref).abs().max().item()
+    t_k = graph_ms(lambda: da.decode_attention(q, k, v, qp, kvp, **kw))
+    bound, by = decode_bound_ms(qp.cpu().numpy(), kvp.cpu().numpy(),
+                                cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+                                2, 4, window=cap)
+    print(f"K2 long_ctx global ring B={B} L={cap} 32/16 of 128, bf16 q fp32 "
+          f"ring, window {cap}, softcap 50, {n_split} splits: max_abs_err "
+          f"{err:.3e} (tol {BF16_TOL}), visits "
+          f"{'ok' if torch.equal(visits, ref_visits) else 'WRONG'}; kernel "
+          f"over a captured graph {t_k:.4f} ms, bound {bound:.5f} ms ({by}) "
+          f"[{name}]", flush=True)
+    if not (torch.allclose(out.float(), ref, atol=BF16_TOL, rtol=BF16_TOL)
+            and torch.equal(visits, ref_visits)):
+        raise AssertionError("K2 disagrees with its plain version on the "
+                             "long_ctx ring")
+    caches = {path: {b: {k_: t.clone() for k_, t in blk.items()}
+                     for b, blk in fill.items()} for path in paths}
+    del fill, ring, k, v, kvp
+    tok = torch.from_numpy(rng.integers(0, V, (B, 1))).cuda()
+    steps = {path: [] for path in paths}
+    k2_0 = da.decode_attention.launches
+    with torch.inference_mode():
+        for t in range(LONG_CTX_STEPS):
+            pos = torch.from_numpy(last + 1 + t).cuda()[:, None]
+            for path, (c, pp, plain) in paths.items():
+                lg = forward(c, pp, tokens=tok, positions=pos,
+                             caches=caches[path], mode="decode",
+                             plain_attention=plain, long_ctx=True)[:, 0]
+                steps[path].append(lg[:, :V])
+            tok = steps["fp32"][-1].argmax(-1)[:, None]
+    k2 = da.decode_attention.launches - k2_0
+    logits = {path: torch.cat(s) for path, s in steps.items()}
+    print(f"gemma2-27b one period long_ctx: caches {shapes} (local ring "
+          f"4096, global capped at {cap}); positions {list(last + 1)}.. "
+          f"decoded {LONG_CTX_STEPS} steps; K2 launches {k2}", flush=True)
+    bf16_rule(against_fp32(logits, "gemma2-27b one period long_ctx",
+                           f"{LONG_CTX_STEPS} steps x {B} rows"),
+              LONG_CTX_STEPS * B, "31 (c)")
+    if k2 != LONG_CTX_STEPS * cfg.n_layers or \
+            shapes["blk1"][2] != cap or shapes["blk0"][2] != cfg.attn.window:
+        raise AssertionError(f"31 (c): K2 launches {k2}, caches {shapes}")
+    return err
+
+
+def phase_gemma2(fa, da, kernels, name):
+    """31. gemma2-27b at full width and depth (46 layers: 23 local, then
+    23 global; 32 / 16 heads of 128 through the fused ``wqkv``), bf16,
+    random weights from ``init_params(seed=0)``, with nothing else on the
+    card: (a) at one period by the bf16 rule (``phase_gemma2_period``),
+    then at 46 layers one 4608-token prompt at B=1 through K1 and through
+    plain attention, each held against the fp32 path
+    (``hidden_fp32_by_layer``) on the last 512 positions' logits by the
+    same rule, K1 against plain attention printed; (b) the
+    continuous engine (max_batch 8, buckets 128 and 512,
+    ``prefill_chunk=128``, 32 new tokens): 15 prompts of 8-120 tokens
+    and one of 500 (chunk by chunk), half sampled, served twice
+    (``serve_twice``), and phase 21's and 22's rules at width 8; (c) at
+    one period (``phase_gemma2_period``). Prints the peak memory.
+    Returns ((b)'s K1..K5 launches, K2's error on (c)'s ring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    gc_mod.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    # each stream a cuBLAS handle ran on keeps its workspace in the caching
+    # allocator (every engine's capture stream since phase 4)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    print(f"gemma2-27b: {mem0:,} B allocated at the phase's start (limit "
+          f"2 GB; {held:,} B before the cuBLAS workspaces were freed)",
+          flush=True)
+    if mem0 >= 2e9:
+        live = sorted(((t.numel() * t.element_size(), tuple(t.shape),
+                        t.dtype) for t in gc_mod.get_objects()
+                       if isinstance(t, torch.Tensor) and t.is_cuda),
+                      key=lambda r: r[0], reverse=True)[:10]
+        raise AssertionError(f"{mem0:,} B still allocated before gemma2; "
+                             f"the largest live tensors: {live}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    k2_err = phase_gemma2_period(da, name)
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma2-27b")
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    attn = params["blocks"]["blk0"]["attn"]
+    print(f"gemma2-27b: {cfg.n_layers} layers drawn, attention leaves "
+          f"{ {k: tuple(t.shape) for k, t in attn.items()} }, "
+          f"{torch.cuda.memory_allocated():,} B allocated", flush=True)
+    if set(attn) != {"wqkv", "wo"}:
+        raise AssertionError("gemma2-27b does not take the fused layout")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(313)
+    toks = torch.from_numpy(rng.integers(0, V, (1, LONG_PROMPT))).cuda()
+    w = head_weight(cfg, None, params["embed"])
+    lg = {}
+    with torch.inference_mode():
+        for path, plain in (("kernels bf16", False), ("plain bf16", True)):
+            k1_0 = fa.flash_attention.launches
+            hid = forward(cfg, params, tokens=toks, return_hidden=True,
+                          plain_attention=plain)[:, -LAST_ROWS:]
+            lg[path] = lm_head_apply(cfg, None, hid, w=w)[0, :, :V]
+            if not plain:
+                k1 = fa.flash_attention.launches - k1_0
+        del w, hid
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        hid = hidden_fp32_by_layer(cfg, params, toks)[:, -LAST_ROWS:]
+        lg["fp32"] = lm_head_apply(cfg32, None, hid, w=head_weight(
+            cfg32, None, params["embed"]))[0, :, :V]
+    del hid
+    a, b = lg["kernels bf16"], lg["plain bf16"]
+    d = (a - b).abs()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean()
+    print(f"gemma2-27b {cfg.n_layers} layers, a {LONG_PROMPT}-token prompt: "
+          f"K1 ({k1} launches) vs plain attention on the last {LAST_ROWS} "
+          f"positions' logits: max_abs_err {d.max().item():.4e}, mean "
+          f"{d.mean().item():.4e}, top-1 agreement {agree.item():.4f} "
+          f"[{name}]", flush=True)
+    if k1 != cfg.n_layers:
+        raise AssertionError(f"31 (a): K1 launches {k1}")
+    bf16_rule(against_fp32(lg, f"gemma2-27b {cfg.n_layers} layers",
+                           f"a {LONG_PROMPT}-token prompt, last {LAST_ROWS} "
+                           f"positions"), LAST_ROWS, "31 (a) at 46 layers")
+    del lg, d, a, b
+    print(f"gemma2-27b: (a) and (c) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    load = big_load(cfg, 314, 15, [500])
+    ec = dict(mode="decoder", max_batch=8, pad_buckets=BIG_BUCKETS,
+              max_new_tokens=BIG_NEW, prefill_chunk=128)
+    served = serve_twice(cfg, params, kernels, ec, load, "gemma2-27b", name)
+    big_program_gates(cfg, params, "gemma2-27b", name, width=8)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gemma2-27b: peak device memory {peak:,} B; phase "
+          f"{time.perf_counter() - t0:.1f} s [{name}]", flush=True)
+    del params
+    return served, k2_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4832,8 +5536,10 @@ def main() -> int:
           f"{dec_served['latency_p95_s'] * 1e3:.3f} ms, mean decode serve "
           f"{dec_served['decode_mean_s'] * 1e3:.3f} ms [{name}]", flush=True)
 
-    # ---- 10. K3 and K4 against their plain versions
-    k3_err, k4_err, mm_checked = phase_matmul_parity(i8, (cfg, qcfg))
+    # ---- 10. K3 and K4 against their plain versions (stablelm-12b's
+    # shapes too: phase 30 serves it with int8 weights)
+    scfg = get_config("stablelm-12b")
+    k3_err, k4_err, mm_checked = phase_matmul_parity(i8, (cfg, qcfg, scfg))
 
     # ---- 11. GECToR-base, full width, bf16, int8 weights: K3 vs plain
     params = init_gector(cfg, vocab, 0, device="cuda")
@@ -5045,6 +5751,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_spec_trained(name)
     clock("phase 28")
+
+    # ---- 29. K1 and K2 at the new models' shapes (head dims 128 and 160,
+    # gemma2's G = 2 and softcap), timed; K3 at stablelm's shapes, timed.
+    # Nothing after phase 28 reads GECToR's or Qwen2's trees: the card is
+    # emptied for the big models
+    del params, qparams, tt, mt
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    k1n_err, k1n_checked = phase_kernel_parity(
+        fa, k1_settings_new(attn_block_sizes), main="stablelm prefill")
+    k2n_err, k2n_checked = phase_decode_parity(da, k2_settings_new(),
+                                               main="stablelm decode")
+    new_rows = phase_new_shape_timings(fa, da, attn_block_sizes, name)
+    k3s_rows = phase_matmul_timings(i8, [
+        (M, K, N, f"stablelm {what} {names}")
+        for M, what in ((16, "decode"), (4096, "prefill"))
+        for (K, N), names in proj_shapes(scfg).items()], name,
+        int8pack=False)
+    clock("phase 29")
+
+    # ---- 30. stablelm-12b at 40 layers: float, int8 W+KV, prefix cache
+    big = phase_stablelm(kernels, name)
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    clock("phase 30")
+
+    # ---- 31. gemma2-27b at 46 layers, fused wqkv, long_ctx at one period
+    gem, k2l_err = phase_gemma2(fa, da, kernels, name)
+    clock("phase 31")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -5067,7 +5802,16 @@ def main() -> int:
                 "prefix int8 KV (bucket 512)": prefix8[i],
                 "spec": spec[i], "spec int8": spec8[i],
                 "lab decoder scenarios": lab[i],
-                **train_paths(i)}
+                **train_paths(i), **big_paths(i)}
+
+    def big_paths(i):
+        """Launches of counter i on phases 30 and 31's paths (the
+        second passes, and the prefix engine's warm one)."""
+        int8 = "stablelm-12b int8 W+KV"
+        return {"stablelm-12b": big["stablelm-12b"][i],
+                int8: big[int8][i],
+                "stablelm-12b prefix": big["stablelm-12b prefix"][i],
+                "gemma2-27b": gem[i]}
 
     def train_paths(i):
         """Launches of counter i (TRAIN_COUNTERS) on phase 28's paths."""
@@ -5103,7 +5847,17 @@ def main() -> int:
                   "bk 32",
         "registers": registers("flash_attention"),
         "qwen2_prefill": hybrid_row(k1q_times),
-        "head_dim_256": hybrid_row(k1h_times, k1h_err, k1h_checked)}, {
+        "head_dim_256": hybrid_row(k1h_times, k1h_err, k1h_checked),
+        "stablelm_prefill": dict(
+            hybrid_row(new_rows["stablelm prefill"], k1n_err, k1n_checked),
+            ms_by="graph_ms (kernel, sdpa); plain by the profiler",
+            shape="B=16 S=512 32/8 heads of 160, causal, bf16"),
+        "gemma2_prefill": dict(
+            hybrid_row(new_rows["gemma2 prefill"]),
+            ms_by="graph_ms (kernel, sdpa without softcap); plain by the "
+                  "profiler",
+            shape="B=8 S=512 32/16 heads of 128, causal, softcap 50, "
+                  "window 4096, bf16")}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:81",
@@ -5120,6 +5874,14 @@ def main() -> int:
                   "a merge launch",
         "registers": registers("decode_attention"),
         "head_dim_256": hybrid_row(k2h_times, k2h_err, k2h_checked),
+        "head_dim_160": dict(
+            hybrid_row(new_rows["stablelm decode"], k2n_err, k2n_checked),
+            shape="B=16 L=576 32/8 heads of 160, bf16 q, fp32 ring"),
+        "gemma2_decode": dict(
+            hybrid_row(new_rows["gemma2 decode"]),
+            shape="B=16 L=576 32/16 heads of 128, softcap 50 (sdpa "
+                  "without), bf16 q, fp32 ring"),
+        "long_ctx_max_abs_err": k2l_err,
         "verify": dict(hybrid_row(k2s_times, k2s_err, k2s_checked),
                        shape="B=16 S=5 L=532 14/2 heads of 64, bf16 q, "
                              "fp32 ring",
@@ -5149,7 +5911,10 @@ def main() -> int:
                   "adding their fp32 partials in split order through "
                   "distributed shared memory; scale once on the fp32 "
                   "total; fp32 x or unaligned rows: masked tiles",
-        "registers": registers("int8_matmul")}, {
+        "registers": registers("int8_matmul"),
+        "stablelm": {f"M={M} K={K} N={N}": dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+            rows[0])) for (M, K, N), rows in k3s_rows.items()}}, {
         "name": "cache_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/cache_matmul.py:43",

@@ -13,7 +13,12 @@ embedding table). A RecurrentGemma tree bridges as it is too: one
 ``blk{j}`` per pattern position (``blk0`` .. ``blk18``), an ``rglru``
 block's ``rglru`` subtree (``w_x``/``w_gate`` (d, w), ``w_out`` (w, d),
 ``conv_w`` (4, w), the per-head ``gate_x``/``gate_a`` and ``a_param``)
-beside its ``norm2`` and ``mlp``. A tree from the JAX ``quantize_params`` bridges as it
+beside its ``norm2`` and ``mlp``. A stablelm tree bridges as it is, its
+norms' ``bias`` leaves and its untied ``lm_head`` (``w`` as (d,
+padded_vocab)) included, and a gemma2 tree too: ``post_norm1`` and
+``post_norm2`` beside each attention block's norms, and, where the config
+takes the fused layout (16 kv heads), ``wqkv`` as (d, Hkv, G + 2, hd)
+in place of ``wq``/``wk``/``wv``. A tree from the JAX ``quantize_params`` bridges as it
 is too: each quantized leaf stays a ``{"qw": int8, "scale": fp32}`` dict,
 which the port's ``qeinsum`` reads. The caller converts the JAX arrays
 to numpy (``jax.tree.map(np.asarray, params)``); nothing here imports jax.

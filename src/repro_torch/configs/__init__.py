@@ -12,6 +12,8 @@ _MODULES = {
     "gector-base": "gector_base",
     "qwen2-0.5b": "qwen2_0_5b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "stablelm-12b": "stablelm_12b",
+    "gemma2-27b": "gemma2_27b",
 }
 
 

@@ -36,7 +36,11 @@
 // would cast it, with no copy. Scores: warp w owns query heads w, w + NW,
 // ..; each lane holds D/32 of their q in registers and, per group of 8
 // slots, forms partial dot products with its D/32 columns (contiguous,
-// conflict-free vector reads; K rounded once for all the warp's heads). A
+// conflict-free vector reads; K rounded once for all the warp's heads;
+// at D = 160 a lane's five contiguous columns would be a 10-byte bf16 run
+// that is not 4-byte aligned for odd lanes, so there lane l takes columns
+// l, l + 32, .., l + 128 instead: scalar reads, each lane in its own bank
+// or sharing a 4-byte word with its neighbour, conflict-free). A
 // transposing butterfly over lane bits 4..2 and two plain shuffle steps
 // reduce a group, and four shuffles hand lane j the score of slot j. The
 // owning warp updates the head's (m, l) in registers and writes the
@@ -59,7 +63,8 @@
 // the shorter ring's bits. Inputs are read in the (B, L, Hkv, D) layout
 // through their strides (q as (B, S, Hq, D)); the ragged last tile is
 // masked here. q and the cache may each be fp32 or bf16; D in
-// {64, 128, 256}; G <= 16.
+// {64, 128, 160, 256} (160: stablelm-12b's, in 320-thread blocks, so
+// that p @ v covers two query heads a pass, as at D = 128); G <= 16.
 //
 // Bound. Decode attention reads the live cache once and does 4 flops per
 // cached element per query head of its group: at Qwen2-0.5B's serving
@@ -74,8 +79,11 @@
 // ms at Qwen2-0.5B's shape (SDPA 0.0089 ms) and 0.0155 ms at
 // RecurrentGemma's (SDPA 0.0121 ms). A verify chunk (S = spec_k + 1) reads
 // the same live ring once from device memory and does S times the flops:
-// at width 16, S = 5 over 532 slots, still bound by its bytes. PERF.md
-// keeps the times of each run.
+// at width 16, S = 5 over 532 slots, still bound by its bytes. At B = 16
+// over 576 fp32 slots (phase 29): 0.0951 ms at stablelm-12b's 8 kv heads
+// x 4 of 160 (SDPA 0.0351 ms, bound 0.0283 ms) and 0.1013 ms at
+// gemma2-27b's 16 x 2 of 128 with its softcap; there only 4 of the
+// block's 10 warps (2 of 8) score. PERF.md keeps the times of each run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,10 +96,20 @@ constexpr int MAXG = 16;          // query heads per kv head
 constexpr float kNegInf = -1e30f;
 
 // threads of a split block: one output column of every query head each
-// at D = 256, of half of them at D = 128, of a quarter at D = 64, where
-// 128-thread blocks let four share an SM
+// at D = 256, of half of them at D = 128 and 160, of a quarter at D = 64,
+// where 128-thread blocks let four share an SM
 template <int D>
-__host__ __device__ constexpr int nthreads() { return D >= 128 ? 256 : 128; }
+__host__ __device__ constexpr int nthreads() {
+  return D == 160 ? 320 : D >= 128 ? 256 : 128;
+}
+
+// the column of a lane's c-th scored element: CH contiguous columns at
+// lane * CH (one vector load, CH = 2, 4 or 8), or at D = 160 (CH = 5)
+// columns lane + 32 c (aligned scalar reads)
+template <int CH>
+__device__ __forceinline__ int lane_col(int lane, int c) {
+  return CH == 5 ? lane + 32 * c : lane * CH + c;
+}
 
 struct Params {
   const void* q;
@@ -139,12 +157,18 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// CH consecutive elements from shared memory as fp32, in vector loads of
-// up to 16 bytes (neighbouring lanes read neighbouring chunks: no bank
-// conflicts)
+// A lane's CH elements of the shared-memory row s as fp32, at its
+// columns lane_col(lane, c): in vector loads of up to 16 bytes where they
+// are contiguous (neighbouring lanes read neighbouring chunks: no bank
+// conflicts), in scalar loads at D = 160
 template <int CH>
-__device__ __forceinline__ void load_cols(const float* s, float* out) {
-  if constexpr (CH % 4 == 0) {
+__device__ __forceinline__ void load_cols(const float* row, int lane,
+                                          float* out) {
+  if constexpr (CH == 5) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) out[c] = row[lane_col<CH>(lane, c)];
+  } else if constexpr (CH % 4 == 0) {
+    const float* s = row + lane * CH;
 #pragma unroll
     for (int i = 0; i < CH / 4; ++i) {
       const float4 x = reinterpret_cast<const float4*>(s)[i];
@@ -153,29 +177,36 @@ __device__ __forceinline__ void load_cols(const float* s, float* out) {
     }
   } else {
     static_assert(CH == 2, "CH is D / 32");
-    const float2 x = *reinterpret_cast<const float2*>(s);
+    const float2 x = *reinterpret_cast<const float2*>(row + lane * CH);
     out[0] = x.x; out[1] = x.y;
   }
 }
 
 template <int CH>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* s,
-                                          float* out) {
-  uint32_t w[CH / 2];
-  if constexpr (CH == 8) {
-    const uint4 x = *reinterpret_cast<const uint4*>(s);
-    w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
-  } else if constexpr (CH == 4) {
-    const uint2 x = *reinterpret_cast<const uint2*>(s);
-    w[0] = x.x; w[1] = x.y;
-  } else {
-    static_assert(CH == 2, "CH is D / 32");
-    w[0] = *reinterpret_cast<const uint32_t*>(s);
-  }
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* row,
+                                          int lane, float* out) {
+  if constexpr (CH == 5) {
 #pragma unroll
-  for (int i = 0; i < CH / 2; ++i) {   // bf16 -> fp32 exactly
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    for (int c = 0; c < CH; ++c)
+      out[c] = to_float(row[lane_col<CH>(lane, c)]);
+  } else {
+    const __nv_bfloat16* s = row + lane * CH;
+    uint32_t w[CH / 2];
+    if constexpr (CH == 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(s);
+      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+    } else if constexpr (CH == 4) {
+      const uint2 x = *reinterpret_cast<const uint2*>(s);
+      w[0] = x.x; w[1] = x.y;
+    } else {
+      static_assert(CH == 2, "CH is D / 32");
+      w[0] = *reinterpret_cast<const uint32_t*>(s);
+    }
+#pragma unroll
+    for (int i = 0; i < CH / 2; ++i) {   // bf16 -> fp32 exactly
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
   }
 }
 
@@ -245,7 +276,7 @@ __global__ void __launch_bounds__(nthreads<D>(), 512 / nthreads<D>())
     decode_split(Params p) {
   constexpr int NT = nthreads<D>();
   constexpr int NW = NT / 32;              // warps
-  constexpr int HPW = MAXG / NW;           // query heads a warp scores
+  constexpr int HPW = (MAXG + NW - 1) / NW;  // query heads a warp scores
   constexpr int CH = D / 32;               // columns a lane scores
   constexpr int RPP = NT / D;              // heads per pass in p @ v
   constexpr int NACC = MAXG / RPP;         // accumulators per thread
@@ -286,7 +317,8 @@ __global__ void __launch_bounds__(nthreads<D>(), 512 / nthreads<D>())
     const int g = warp + hh * NW;
 #pragma unroll
     for (int c = 0; c < CH; ++c)
-      qr[hh][c] = g < G ? to_float(qb[g * p.q_sh + lane * CH + c]) : 0.f;
+      qr[hh][c] =
+          g < G ? to_float(qb[g * p.q_sh + lane_col<CH>(lane, c)]) : 0.f;
     m_h[hh] = kNegInf;
     l_h[hh] = 0.f;
   }
@@ -324,7 +356,7 @@ __global__ void __launch_bounds__(nthreads<D>(), 512 / nthreads<D>())
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         float kk[CH];
-        load_cols<CH>(Ks + (grp * 8 + jj) * D + lane * CH, kk);
+        load_cols<CH>(Ks + (grp * 8 + jj) * D, lane, kk);
 #pragma unroll
         for (int c = 0; c < CH; ++c) kk[c] = as_q_type(kk[c], qb);
 #pragma unroll
@@ -484,13 +516,14 @@ int launch(const Params& p, int B, void* out, int* visits,
   const int stages = p.per_split > 1 ? 2 : 1;
   const int bytes = stages * 2 * BK * D * static_cast<int>(sizeof(TKV));
   constexpr int max_bytes = 2 * 2 * BK * D * static_cast<int>(sizeof(TKV));
-  if (max_bytes > 48 * 1024) {
-    // once per kernel instance (thread-safe static initialisation)
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        decode_split<TQ, TKV, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-  }
+  // once per kernel instance (thread-safe static initialisation), for
+  // every instance: past 48 KB of static and dynamic shared memory
+  // together a launch needs it (bf16 at D = 160: 40 KB dynamic beside
+  // 12 KB static)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_split<TQ, TKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      max_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   decode_split<TQ, TKV, D>
       <<<dim3(B * p.Hkv, p.n_split, p.S), nthreads<D>(), bytes, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
@@ -506,6 +539,7 @@ int dispatch(const Params& p, int B, int D, void* out, int* visits,
              cudaStream_t stream) {
   if (D == 64) return launch<TQ, TKV, 64>(p, B, out, visits, stream);
   if (D == 128) return launch<TQ, TKV, 128>(p, B, out, visits, stream);
+  if (D == 160) return launch<TQ, TKV, 160>(p, B, out, visits, stream);
   if (D == 256) return launch<TQ, TKV, 256>(p, B, out, visits, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,7 +15,10 @@
 // (b*Hq + h, q tile of BQ rows); the TPU's sequential kv grid axis becomes
 // the loop over kv tiles inside the block. Inputs are read in the
 // (B, S, H, D) layout through their strides (no transpose, reshape or pad
-// copies); the ragged Sq and Skv edges are masked here. D in {64, 128, 256}.
+// copies); the ragged Sq and Skv edges are masked here. D in
+// {64, 128, 160, 256}: 160 is stablelm-12b's (5120 / 32 heads), a native
+// instance of both kernels (ten float4 chunks a thread in fp32, twenty
+// 8-column output tiles a warp in bf16), not padded to a wider head.
 //
 // bf16 (the serving path): tensor cores, FlashAttention-2 style. Each warp
 // owns 16 query rows (BQ = 32 or 64: 2 or 4 warps). Q (BQ x D) and two stages
@@ -44,10 +47,10 @@
 //
 // fp32 (the reference-precision checks, TF32 off): full fp32 FMAs on the
 // CUDA cores, never TF32. TPR neighbouring threads share one query row (4
-// for D = 64 and 128, 8 for D = 256), each keeping 1/TPR of the row's q
+// for D = 64, 128 and 160, 8 for D = 256), each keeping 1/TPR of the row's q
 // and accumulator in registers; K and V tiles of BK = 32 rows are staged
 // in dynamic shared memory; a score is the TPR partial dot products summed
-// with warp shuffles. BQ in {32, 64} for D <= 128 and 32 for D = 256 (a
+// with warp shuffles. BQ in {32, 64} for D <= 160 and 32 for D = 256 (a
 // 64-row tile's 512 threads spilled).
 //
 // Training. Given an lse pointer, separate instances of both kernels also
@@ -65,8 +68,11 @@
 // the card rather than to reach the tensor cores' peak. Measured by python3
 // chip_smoke.py (phases 5 and 19) on an NVIDIA H100 80GB HBM3 at 700 W, by
 // device time with a warm L2: 0.0170 ms at the encoder's shape (SDPA 0.0093
-// ms) and 0.0503 ms at the local layers' (SDPA 0.0355 ms). PERF.md keeps
-// the times of each run.
+// ms) and 0.0503 ms at the local layers' (SDPA 0.0355 ms); by graph_ms
+// (phase 29), 0.3208 ms at stablelm-12b's prefill (B=16, S=512, 32/8
+// heads of 160; SDPA 0.1407 ms) and 0.2097 ms at gemma2-27b's with its
+// softcap of 50 (SDPA, without one, 0.0534 ms). PERF.md keeps the times
+// of each run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -597,6 +603,8 @@ int dispatch_f32(const Params& p, int B, int D, int bq, cudaStream_t st) {
   if (D == 64 && bq == 64) return launch_f32<64, 64>(p, B, st);
   if (D == 128 && bq == 32) return launch_f32<128, 32>(p, B, st);
   if (D == 128 && bq == 64) return launch_f32<128, 64>(p, B, st);
+  if (D == 160 && bq == 32) return launch_f32<160, 32>(p, B, st);
+  if (D == 160 && bq == 64) return launch_f32<160, 64>(p, B, st);
   if (D == 256 && bq == 32) return launch_f32<256, 32>(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -606,6 +614,8 @@ int dispatch_bf16(const Params& p, int B, int D, int bq, cudaStream_t st) {
   if (D == 64 && bq == 64) return launch_bf16<64, 64>(p, B, st);
   if (D == 128 && bq == 32) return launch_bf16<128, 32>(p, B, st);
   if (D == 128 && bq == 64) return launch_bf16<128, 64>(p, B, st);
+  if (D == 160 && bq == 32) return launch_bf16<160, 32>(p, B, st);
+  if (D == 160 && bq == 64) return launch_bf16<160, 64>(p, B, st);
   if (D == 256 && bq == 32) return launch_bf16<256, 32>(p, B, st);
   if (D == 256 && bq == 64) return launch_bf16<256, 64>(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -616,7 +626,7 @@ int dispatch_bf16(const Params& p, int B, int D, int bq, cudaStream_t st) {
 // The kv tile of the kernel for (dtype, D): 0 = float32, 1 = bfloat16;
 // 0 if it is not built.
 extern "C" int flash_attention_block_k(int dtype, int D) {
-  if (D != 64 && D != 128 && D != 256) return 0;
+  if (D != 64 && D != 128 && D != 160 && D != 256) return 0;
   if (dtype == 0) return BK_F32;
   if (dtype == 1) return bk_bf16(D);
   return 0;

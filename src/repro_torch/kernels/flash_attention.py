@@ -37,7 +37,10 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 BLOCK_K = 32                  # kv tile of the fp32 kernel (csrc: BK_F32)
 BLOCK_Q = (32, 64)            # q tiles the CUDA kernel is built for
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 160, 256)
+# the head dims the backward kernel is built for (stablelm-12b's 160 is
+# served, not trained)
+BWD_HEAD_DIMS = (64, 128, 256)
 # (q tiles, kv tile) the CUDA kernel is built for, by (dtype, head dim).
 # fp32 runs on the CUDA cores with 32-row kv tiles, and at head dim 256
 # only bq = 32 (a 64-row tile's 512 threads spill). bf16 runs on the
@@ -45,9 +48,9 @@ HEAD_DIMS = (64, 128, 256)
 # dim 256 (its scores then take 16 registers beside the 128 of the output
 # accumulators).
 TILES = {
-    **{(torch.float32, d): (BLOCK_Q, BLOCK_K) for d in (64, 128)},
+    **{(torch.float32, d): (BLOCK_Q, BLOCK_K) for d in (64, 128, 160)},
     (torch.float32, 256): ((32,), BLOCK_K),
-    **{(torch.bfloat16, d): (BLOCK_Q, 64) for d in (64, 128)},
+    **{(torch.bfloat16, d): (BLOCK_Q, 64) for d in (64, 128, 160)},
     (torch.bfloat16, 256): (BLOCK_Q, 32),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -445,6 +448,8 @@ def _bwd_lib():
         lib.flash_attention_bwd_max_cluster.restype = i
         lib.flash_attention_bwd_max_cluster.argtypes = []
         for (dtype, d), (_, bk) in TILES.items():
+            if d not in BWD_HEAD_DIMS:
+                continue
             if lib.flash_attention_bwd_block_k(_DTYPE_CODE[dtype], d) != bk:
                 raise RuntimeError(f"csrc/flash_attention_bwd.cu: the kv "
                                    f"tile for ({dtype}, {d}) is not {bk}")
@@ -489,6 +494,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
     q, k, v, out, dout, lse = (t.contiguous() for t in
                                (q, k, v, out, dout, lse))
     _check_cuda(q, k, v, bq, bk)
+    if q.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel's head dims are "
+                         f"{BWD_HEAD_DIMS}, got {q.shape[3]}")
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} / dout "
                          f"{tuple(dout.shape)} do not match q "

@@ -6,10 +6,12 @@ random requests and prints the engine's metrics.
       --max-new-tokens 16 --temperature 0.8
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-9b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b
   PYTHONPATH=src python -m repro_torch.launch.serve --ladder 1 4 16
 
 ``gector-base`` serves sentences in encoder mode with its edit-tag head;
-``qwen2-0.5b`` and ``recurrentgemma-9b`` serve prompts in decoder mode
+``qwen2-0.5b``, ``stablelm-12b``, ``gemma2-27b`` and
+``recurrentgemma-9b`` serve prompts in decoder mode
 through ``generate()``, on the continuous scheduler over the KV pool
 (``--no-continuous``: batch at a time), greedy or sampled at
 ``--temperature`` (and ``--top-k``) with per-request seeds, stopping at
@@ -37,6 +39,9 @@ from repro_torch.models import init_params
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.api import SamplingParams
 from repro_torch.training.checkpoint import restore
+
+DECODER_ARCHS = ("qwen2-0.5b", "stablelm-12b", "gemma2-27b",
+                 "recurrentgemma-9b")
 
 
 def _ladder(args, cfg, eng, rng) -> None:
@@ -115,8 +120,7 @@ def _serve_decoder(args, cfg, rng):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gector-base",
-                    choices=["gector-base", "qwen2-0.5b",
-                             "recurrentgemma-9b"])
+                    choices=["gector-base", *DECODER_ARCHS])
     ap.add_argument("--smoke", action="store_true",
                     help="the small same-family config")
     ap.add_argument("--device", default=None,
@@ -146,7 +150,7 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=args.smoke)
     rng = np.random.default_rng(args.seed)
-    if args.arch in ("qwen2-0.5b", "recurrentgemma-9b"):
+    if args.arch in DECODER_ARCHS:
         _serve_decoder(args, cfg, rng)
     else:
         _serve_encoder(args, cfg, rng)

@@ -1,8 +1,11 @@
 """Grouped-query attention over a full sequence and over a ring KV cache.
 
-Port of ``repro/models/attention.py`` for the split q/k/v layout. Weights
-keep the JAX layout: ``wq``/``wk``/``wv`` as (d, h, hd), ``wo`` as
-(h, hd, d), biases ``bq``/``bk``/``bv`` as (h, hd). Full-sequence
+Port of ``repro/models/attention.py``. Weights keep the JAX layout:
+``wq``/``wk``/``wv`` as (d, h, hd), ``wo`` as (h, hd, d), biases
+``bq``/``bk``/``bv`` as (h, hd); or, where ``cfg.fused_qkv`` (kv heads a
+multiple of 16: gemma2-27b), one ``wqkv`` as (d, Hkv, G + 2, hd) holding
+each kv head's G query heads, then its k and its v, with ``bqkv`` as
+(Hkv, G + 2, hd). Full-sequence
 attention goes through ``ops.mha_prefill`` (K1), and single-step decode
 and a speculative verify chunk through ``ops.gqa_decode`` (K2, one query
 a row or spec_k + 1): the CUDA kernels on a CUDA tensor, their plain
@@ -18,6 +21,12 @@ int32 absolute positions (-1 = empty slot) and ``len`` (B,) int32, as in
 JAX; an int8 cache adds the fp32 scale planes ``k_scale``/``v_scale``
 (B, L, Hkv) (``quant/kv.py``). Where JAX returns new arrays, the port
 writes into the cache tensors in place and returns the same dict.
+
+Decode and verify take x with zero padding rows past the B rows of
+``positions`` (``transformer.forward``'s ``decode_width``): the
+projections run on every row (``_project_qkv`` keeps q, k, v's first B),
+the ring and K2 on the B rows, and ``pad_rows`` pads the attention's
+output back for ``wo``.
 """
 from __future__ import annotations
 
@@ -36,6 +45,14 @@ def attn_init(cfg, gen, d_model=None):
     d = d_model or cfg.d_model
     hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     dt = cfg.torch_dtype
+    if cfg.fused_qkv:
+        gq = hq // hkv
+        p = {"wqkv": dense_init(gen, (d, hkv, gq + 2, hd), d, dt),
+             "wo": dense_init(gen, (hq, hd, d), hq * hd, dt)}
+        if cfg.attn.qkv_bias:
+            p["bqkv"] = torch.zeros((hkv, gq + 2, hd), dtype=dt,
+                                    device=gen.device)
+        return p
     p = {"wq": dense_init(gen, (d, hq, hd), d, dt),
          "wk": dense_init(gen, (d, hkv, hd), d, dt),
          "wv": dense_init(gen, (d, hkv, hd), d, dt),
@@ -52,16 +69,28 @@ def _project_qkv(cfg, p, x, positions=None, rope=None, plain_matmul=False):
     """x (B, S, d) -> q (B, S, Hq, hd), k/v (B, S, Hkv, hd), with the QKV
     bias and the rotary embedding where the config has them. ``rope`` is
     ``rope_angles(positions, ...)`` when the caller computed it once for
-    every layer. The fused ``wqkv`` layout is not ported."""
-    if "wqkv" in p or cfg.fused_qkv:
-        raise NotImplementedError(
-            "the fused wqkv layout is ROADMAP Queue 1 item 2 (dense model "
-            "core)")
-    q, k, v = (qeinsum("bsd,dhk->bshk", x, p[name],
-                       plain_matmul=plain_matmul)
-               for name in ("wq", "wk", "wv"))
-    if cfg.attn.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    every layer. A fused ``wqkv`` is one product, split into q (each kv
+    head's first G), k and v, as in JAX. x may carry padding rows past
+    the B rows of ``positions`` (a decode step's products at a fixed M:
+    see ``transformer.forward``'s ``decode_width``): the products run on
+    every row, and q, k, v keep the first B."""
+    if "wqkv" in p:
+        B, S = x.shape[:2]
+        gq = cfg.n_heads // cfg.n_kv_heads
+        qkv = qeinsum("bsd,dgch->bsgch", x, p["wqkv"],
+                      plain_matmul=plain_matmul)
+        if cfg.attn.qkv_bias:
+            qkv = qkv + p["bqkv"]
+        q = qkv[:, :, :, :gq].reshape(B, S, cfg.n_heads, cfg.head_dim_)
+        k, v = qkv[:, :, :, gq], qkv[:, :, :, gq + 1]
+    else:
+        q, k, v = (qeinsum("bsd,dhk->bshk", x, p[name],
+                           plain_matmul=plain_matmul)
+                   for name in ("wq", "wk", "wv"))
+        if cfg.attn.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if positions is not None and q.shape[0] > positions.shape[0]:
+        q, k, v = (t[:positions.shape[0]] for t in (q, k, v))
     if cfg.attn.rope_base is not None and positions is not None:
         if rope is None:
             rope = rope_angles(positions, q.shape[-1], cfg.attn.rope_base)
@@ -100,14 +129,20 @@ def naive_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
 
 # ------------------------------------------------------------------ caches
 def make_cache(cfg, batch, max_len, *, window=None, dtype=torch.bfloat16,
-               quantized=False, device=None):
+               long_ctx=False, quantized=False, device=None):
     """Allocate a KV cache on ``device`` (default: the card): ``max_len``
     slots, or for a local layer (``window``) ``min(max_len, window)``, a
-    ring, as in JAX; float ``dtype`` K/V, or with ``quantized`` int8 K/V
-    and zeroed fp32 scale planes ``k_scale``/``v_scale`` (B, L, Hkv). The
-    global layers' long-context cap is not ported."""
+    ring, as in JAX; with ``long_ctx`` a global layer's slots are capped
+    at ``cfg.attn.long_ctx_window_cap`` (the windowed-global variant,
+    where the config has a cap). Float ``dtype`` K/V, or with
+    ``quantized`` int8 K/V and zeroed fp32 scale planes
+    ``k_scale``/``v_scale`` (B, L, Hkv)."""
     dev = resolve_device(device)
-    L = max_len if window is None else min(max_len, window)
+    L = max_len
+    if window is not None:
+        L = min(L, window)
+    elif long_ctx and cfg.attn.long_ctx_window_cap is not None:
+        L = min(L, cfg.attn.long_ctx_window_cap)
     shape = (batch, L, cfg.n_kv_heads, cfg.head_dim_)
     kv_dtype = torch.int8 if quantized else dtype
     cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
@@ -194,9 +229,11 @@ def attn_decode(cfg, p, x, positions, cache, *, window=None,
     ``naive_attention``, as the JAX model does; ``plain_matmul``, see
     ``qeinsum``. K2 splits the ring by ``decode_width`` (default B): a
     caller that runs one row at several widths gives its widest, and the
-    row's bits do not change with the batch around it. Returns (out,
-    cache)."""
-    B = x.shape[0]
+    row's bits do not change with the batch around it. x may carry
+    padding rows past the B rows of ``positions`` (``_project_qkv``):
+    the attention runs on the B rows and its output is padded back with
+    zero rows for ``wo``. Returns (out, cache)."""
+    B = positions.shape[0]
     q, k, v = _project_qkv(cfg, p, x, positions, rope, plain_matmul)
     L = cache["k"].shape[1]
     slot = positions[:, 0].long() % L                       # (B,)
@@ -217,7 +254,7 @@ def attn_decode(cfg, p, x, positions, cache, *, window=None,
         out = ops.gqa_decode(q, rk, rv, positions[:, 0], cache["pos"],
                              window=window, softcap=softcap,
                              width=decode_width)
-    return qeinsum("bshk,hkd->bsd", out, p["wo"],
+    return qeinsum("bshk,hkd->bsd", pad_rows(out, x.shape[0]), p["wo"],
                    plain_matmul=plain_matmul), cache
 
 
@@ -252,6 +289,14 @@ def attn_prefill_chunk(cfg, p, x, positions, cache, *, window=None,
     cache["len"] += S
     return qeinsum("bshk,hkd->bsd", out, p["wo"],
                    plain_matmul=plain_matmul), cache
+
+
+def pad_rows(t, rows):
+    """t with zero rows appended on axis 0 up to ``rows`` (t itself when
+    it has as many)."""
+    if t.shape[0] >= rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0], *t.shape[1:]))])
 
 
 def per_row(fn, x):
@@ -289,8 +334,9 @@ def attn_verify_chunk(cfg, p, x, positions, cache, *, window=None,
     position (``per_row``) at a decode step's M. ``plain_attention``
     reads the ring back in q's type and runs ``naive_attention``, as the
     JAX model does. Requires S < L (the engine sizes the ring with
-    ``spec_k`` slots of headroom: no wrap)."""
-    B, S, _ = x.shape
+    ``spec_k`` slots of headroom: no wrap). x may carry padding rows past
+    the B rows of ``positions``, as in ``attn_decode``."""
+    B, S = positions.shape
     q, k, v = (torch.cat(t, 1) for t in zip(*(
         _project_qkv(cfg, p, x[:, s:s + 1].contiguous(),
                      positions[:, s:s + 1], None, plain_matmul)
@@ -315,4 +361,5 @@ def attn_verify_chunk(cfg, p, x, positions, cache, *, window=None,
                              window=window, softcap=softcap,
                              partition=partition)
     return per_row(lambda o: qeinsum("bshk,hkd->bsd", o, p["wo"],
-                                     plain_matmul=plain_matmul), out), cache
+                                     plain_matmul=plain_matmul),
+                   pad_rows(out, x.shape[0])), cache

@@ -1,18 +1,23 @@
 """Stacked model: init, caches, forward, decode and sampling.
 
-Port of ``repro/models/transformer.py`` for stacks of three blocks:
+Port of ``repro/models/transformer.py`` for stacks of four blocks:
 ``attn`` (global attention, bidirectional for GECToR/BERT or causal),
+``attn_global`` (the same, named as gemma2's pattern names it),
 ``attn_local`` (causal sliding-window attention over a window-sized ring
 cache) and ``rglru`` (Griffin's recurrent block, ``models/rglru.py``),
-with QKV bias, rotary embeddings, a gated MLP and tied embeddings (Qwen2,
-RecurrentGemma). Modes ``full`` (whole sequences, optionally filling
-caches), ``decode`` (one step against the caches) and ``chunk`` (a
-prefill chunk that continues the caches). Parameters and
-caches keep the JAX trees: one ``blocks/blk{j}`` per pattern position,
-stacked over a leading period axis. The stack runs in JAX's order: for
-each pattern position j, every period of ``blk{j}`` (JAX scans each
-position over its periods); for a pattern of one position that is the
-plain layer order. The period loop is Python (JAX scans it), and
+with QKV bias, the fused ``wqkv`` layout, rotary embeddings, a gated MLP,
+gemma2's post-norms and softcaps, and tied or untied embeddings (Qwen2,
+stablelm, gemma2, RecurrentGemma). Modes ``full`` (whole sequences,
+optionally filling caches), ``decode`` (one step against the caches),
+``chunk`` (a prefill chunk that continues the caches) and ``verify``.
+With ``long_ctx`` the global layers' caches and windows are capped at
+``attn.long_ctx_window_cap`` (gemma2's windowed-global variant).
+Parameters and caches keep the JAX trees: one ``blocks/blk{j}`` per
+pattern position, stacked over a leading period axis. The stack runs in
+JAX's order: for each pattern position j, every period of ``blk{j}``
+(JAX scans each position over its periods); for a pattern of one
+position that is the plain layer order, for gemma2 all local layers,
+then all global ones. The period loop is Python (JAX scans it), and
 ``decode_segment``'s scan over steps is a Python loop with no host sync
 inside: active rows, budgets and eos hits stay device tensors. Caches
 and recurrent states are written in place (JAX returns new arrays).
@@ -34,21 +39,28 @@ from repro_torch.models.layers import (apply_norm, embed_apply, embed_init,
                                        rope_angles)
 
 
-BLOCK_KINDS = ("attn", "attn_local", "rglru")
+BLOCK_KINDS = ("attn", "attn_global", "attn_local", "rglru")
 
 
 def _check_supported(cfg: ModelConfig):
     bad = sorted(set(cfg.pattern) - set(BLOCK_KINDS))
-    if (bad or cfg.moe is not None or cfg.post_norms or cfg.enc_layers
-            or cfg.vis_tokens):
+    if bad or cfg.moe is not None or cfg.enc_layers or cfg.vis_tokens:
         raise NotImplementedError(
             f"{cfg.name}: only stacks of {BLOCK_KINDS} blocks without MoE, "
-            f"post-norms, an encoder or a vision prefix are ported "
+            f"an encoder or a vision prefix are ported "
             f"(pattern={cfg.pattern!r}); the other blocks are ROADMAP "
-            f"Queue 1 items 2 and 13")
-    if cfg.fused_qkv:
-        raise NotImplementedError(
-            f"{cfg.name}: the fused wqkv layout is ROADMAP Queue 1 item 2")
+            f"Queue 1 item 13")
+
+
+def _window(cfg, kind, long_ctx):
+    """The attention window of a ``kind`` layer: a local layer's own, a
+    global layer's the long-context cap under ``long_ctx`` (JAX's
+    ``_apply_block``), else None."""
+    if kind == "attn_local":
+        return cfg.attn.window
+    if long_ctx and cfg.attn.long_ctx_window_cap:
+        return cfg.attn.long_ctx_window_cap
+    return None
 
 
 def _block_init(cfg, kind, gen, device):
@@ -56,16 +68,39 @@ def _block_init(cfg, kind, gen, device):
         return {"rglru": rglru_mod.rglru_init(cfg, gen),
                 "norm2": norm_init(cfg, device),
                 "mlp": mlp_init(cfg, gen)}
-    return {"norm1": norm_init(cfg, device),
-            "attn": attn_mod.attn_init(cfg, gen),
-            "norm2": norm_init(cfg, device),
-            "mlp": mlp_init(cfg, gen)}
+    p = {"norm1": norm_init(cfg, device),
+         "attn": attn_mod.attn_init(cfg, gen),
+         "norm2": norm_init(cfg, device),
+         "mlp": mlp_init(cfg, gen)}
+    if cfg.post_norms:
+        p["post_norm1"] = norm_init(cfg, device)
+        p["post_norm2"] = norm_init(cfg, device)
+    return p
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _init_stack(cfg, kind, gen, device):
+    """One pattern position's blocks over ``cfg.n_periods`` periods, each
+    period drawn in turn (the draw order of stacking per-period trees)
+    into its slice of a preallocated (n_periods, ...) tensor per leaf, so
+    that one period's tree is transient at a time."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        out = torch.empty((cfg.n_periods, *t.shape), dtype=t.dtype,
+                          device=t.device)
+        out[0] = t
+        return out
+
+    def put(dst, t, i):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                put(dst[k], v, i)
+        else:
+            dst[i] = t
+    stack = alloc(_block_init(cfg, kind, gen, device))
+    for i in range(1, cfg.n_periods):
+        put(stack, _block_init(cfg, kind, gen, device), i)
+    return stack
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
@@ -85,22 +120,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
                                              min(cfg.max_seq_len, 8192))
     if not cfg.tie_embeddings:
         params["lm_head"] = lm_head_init(cfg, gen)
-    params["blocks"] = {
-        f"blk{j}": _stack([_block_init(cfg, kind, gen, dev)
-                           for _ in range(cfg.n_periods)])
-        for j, kind in enumerate(cfg.pattern)}
+    params["blocks"] = {f"blk{j}": _init_stack(cfg, kind, gen, dev)
+                        for j, kind in enumerate(cfg.pattern)}
     return params
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                dtype=torch.bfloat16, kv_quant=None, device=None):
+                long_ctx: bool = False, dtype=torch.bfloat16, kv_quant=None,
+                device=None):
     """Decode caches on ``device`` (default: the card), one tree per
     pattern position stacked over periods (a leading (n_periods,) axis):
     ``{k, v, pos, len}`` for an attention block, of ``max_len`` slots or,
-    for ``attn_local``, a ring of ``min(max_len, window)``;
-    ``{h, conv}`` fp32 zero states for an ``rglru`` block.
-    ``kv_quant="int8"`` gives the attention caches int8 K/V with their
-    fp32 scale planes ``k_scale``/``v_scale``."""
+    for ``attn_local``, a ring of ``min(max_len, window)``, and with
+    ``long_ctx`` a global block's capped at
+    ``attn.long_ctx_window_cap``; ``{h, conv}`` fp32 zero states for an
+    ``rglru`` block. ``kv_quant="int8"`` gives the attention caches int8
+    K/V with their fp32 scale planes ``k_scale``/``v_scale``."""
     _check_supported(cfg)
     caches = {}
     for j, kind in enumerate(cfg.pattern):
@@ -110,35 +145,49 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
             one = attn_mod.make_cache(
                 cfg, batch, max_len, dtype=dtype,
                 window=cfg.attn.window if kind == "attn_local" else None,
-                quantized=kv_quant == "int8", device=device)
+                long_ctx=long_ctx, quantized=kv_quant == "int8",
+                device=device)
         caches[f"blk{j}"] = {k: t.expand(cfg.n_periods, *t.shape).clone()
                              for k, t in one.items()}
     return caches
 
 
+def _post_norm(cfg, p, name, y, mode):
+    """gemma2's post-norm of a block's attention or MLP output (row-wise
+    at a decode step's M in verify mode), or ``y`` as it is."""
+    if not cfg.post_norms:
+        return y
+    if mode == "verify":
+        return attn_mod.per_row(lambda t: apply_norm(cfg, p[name], t), y)
+    return apply_norm(cfg, p[name], y)
+
+
 def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                  plain_attention, plain_matmul, rope, decode_width=None,
-                 partition=None):
+                 partition=None, long_ctx=False):
     if kind == "rglru":
-        if mode == "decode":
-            delta, _ = rglru_mod.rglru_step(cfg, p["rglru"], x, cache)
+        if mode == "decode":        # the state's rows: x's padding skipped
+            delta, _ = rglru_mod.rglru_step(
+                cfg, p["rglru"], x[:positions.shape[0]], cache)
+            delta = attn_mod.pad_rows(delta, x.shape[0])
         else:
             delta, _ = rglru_mod.rglru_apply(cfg, p["rglru"], x, cache,
                                              plain_scan=plain_attention)
         x = x + delta
         h = apply_norm(cfg, p["norm2"], x)
         return x + mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
-    window = cfg.attn.window if kind == "attn_local" else None
+    window = _window(cfg, kind, long_ctx)
     if mode == "verify":          # row-wise work at a decode step's M
         h = attn_mod.per_row(lambda t: apply_norm(cfg, p["norm1"], t), x)
         a, _ = attn_mod.attn_verify_chunk(
             cfg, p["attn"], h, positions, cache, window=window,
             plain_attention=plain_attention, plain_matmul=plain_matmul,
             partition=partition)
-        x = x + a
-        return x + attn_mod.per_row(
+        x = x + _post_norm(cfg, p, "post_norm1", a, mode)
+        f = attn_mod.per_row(
             lambda t: mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], t),
                                 plain_matmul=plain_matmul), x)
+        return x + _post_norm(cfg, p, "post_norm2", f, mode)
     h = apply_norm(cfg, p["norm1"], x)
     if mode == "decode":
         a, _ = attn_mod.attn_decode(cfg, p["attn"], h, positions, cache,
@@ -156,9 +205,10 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                                    causal=causal, window=window, cache=cache,
                                    plain_attention=plain_attention,
                                    plain_matmul=plain_matmul, rope=rope)
-    x = x + a
+    x = x + _post_norm(cfg, p, "post_norm1", a, mode)
     h = apply_norm(cfg, p["norm2"], x)
-    return x + mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
+    f = mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
+    return x + _post_norm(cfg, p, "post_norm2", f, mode)
 
 
 def forward(cfg: ModelConfig, params, *, tokens, positions=None,
@@ -166,7 +216,7 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             return_hidden: bool = False, plain_attention: bool = False,
             plain_matmul: bool = False, head_w=None,
             decode_width: int | None = None, partition=None,
-            remat: bool = False):
+            remat: bool = False, long_ctx: bool = False):
     """Run the model. tokens: (B, S) int; positions: (B, S), default
     0..S-1.
 
@@ -187,18 +237,30 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     (decode mode) is the batch width K2's split count is chosen for,
     default the batch's own: see ``attn_decode``; ``partition`` (verify
     mode) K2's (n_split, per_split), default the kernel's own: see
-    ``ops.gqa_decode``. Parameters may be
+    ``ops.gqa_decode``. In decode and verify mode with a
+    ``decode_width`` above B, the hidden states carry ``decode_width - B``
+    zero rows past the batch on every device, so that every row-wise
+    step (the projections, the MLP, the norms, the head) runs at M =
+    decode_width whatever the width: on the H100 cuBLAS and cublasLt take
+    other kernels at 1-8 rows than at 16 for gemma2-27b's ``w_down`` and
+    RecurrentGemma-9B's (4096, 4096) products (``chip_blas_rows.py``),
+    and a row's bits would follow its width. The attention's ring and K2
+    (``attention.attn_decode``) and the recurrent states see the B rows
+    of ``positions``; the padding is cut from the result. Parameters may be
     ``quantize_params``' tree: its int8 projections go through K3. With
     ``cfg.embed_scale`` the embedding is scaled by sqrt(d_model), rounded
     to the model dtype, as JAX does for the Gemma family. ``remat`` (with
     grad enabled) runs each block under ``torch.utils.checkpoint``
     (``use_reentrant=False``), as JAX's ``jax.checkpoint`` of its period
     body: the backward recomputes the block's activations, K1 and K5
-    included, instead of keeping them."""
+    included, instead of keeping them. ``long_ctx`` caps each global
+    layer's window at ``attn.long_ctx_window_cap`` (the caches must be
+    ``make_caches(..., long_ctx=True)``'s), as JAX's ``long_ctx``."""
     if mode not in ("full", "decode", "chunk", "verify"):
         raise ValueError(f"mode must be 'full', 'decode', 'chunk' or "
                          f"'verify', got {mode!r}")
-    if mode == "verify" and any(k != "attn" for k in cfg.pattern):
+    if mode == "verify" and any(k not in ("attn", "attn_global")
+                                for k in cfg.pattern):
         raise ValueError(f"mode='verify' needs a pure global-attention "
                          f"pattern (pattern={cfg.pattern!r})")
     if mode != "full" and (caches is None or positions is None):
@@ -215,6 +277,8 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     if cfg.abs_pos and "pos_embed" in params:
         tbl = params["pos_embed"]["table"]
         x = x + tbl[positions % tbl.shape[0]].to(cfg.torch_dtype)
+    if mode in ("decode", "verify") and decode_width is not None:
+        x = attn_mod.pad_rows(x, decode_width)
     rope = (None if cfg.attn.rope_base is None or mode == "verify" else
             rope_angles(positions, cfg.head_dim_, cfg.attn.rope_base))
     for j, kind in enumerate(cfg.pattern):     # JAX's order: see the top
@@ -226,7 +290,8 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             kw = dict(mode=mode, causal=causal,
                       plain_attention=plain_attention,
                       plain_matmul=plain_matmul, rope=rope,
-                      decode_width=decode_width, partition=partition)
+                      decode_width=decode_width, partition=partition,
+                      long_ctx=long_ctx)
             if remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
                     _apply_block, cfg, kind, _index_tree(blk, i), x,
@@ -236,8 +301,9 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
                                  positions, cache, **kw)
     if mode == "verify":
         return attn_mod.per_row(lambda t: _final(cfg, params, t,
-                                                 return_hidden, head_w), x)
-    return _final(cfg, params, x, return_hidden, head_w)
+                                                 return_hidden, head_w),
+                                x)[:B]
+    return _final(cfg, params, x, return_hidden, head_w)[:B]
 
 
 def _final(cfg, params, x, return_hidden, head_w):
@@ -300,7 +366,7 @@ def verify_chunk(cfg, params, tokens, positions, caches, **kw):
 def spec_round(cfg, params, draft_cfg, draft_params, tokens, positions,
                caches, draft_caches, *, k: int, temperature=None,
                top_k=None, seed=None, head_w=None, draft_head_w=None,
-               decode_width=None, partition=None):
+               decode_width=None, partition=None, long_ctx=False):
     """One draft-and-verify round (JAX's ``spec_round``): propose ``k``
     tokens with the draft model, then score them with one target
     ``verify_chunk``.
@@ -317,8 +383,10 @@ def spec_round(cfg, params, draft_cfg, draft_params, tokens, positions,
     committed stream (the leading agreements plus one target token) is
     plain decoding's, greedy or sampled. ``partition`` fixes K2's split
     partition in the verify chunk (``verify_chunk``), ``decode_width``
-    the draft's steps' split count. ``head_w`` / ``draft_head_w``: each
-    model's ``head_weight`` cast once.
+    the draft's steps' split count and the M at which the draft's steps
+    and the verify chunk's positions run (``forward``). ``head_w`` /
+    ``draft_head_w``: each model's ``head_weight`` cast once;
+    ``long_ctx``, see ``forward``.
 
     Returns (drafts (B, k) int32, verify (B, k + 1) int32, caches,
     draft_caches); both caches hold KV through position p + k, and each
@@ -330,14 +398,15 @@ def spec_round(cfg, params, draft_cfg, draft_params, tokens, positions,
     for _ in range(k):
         logits = forward(draft_cfg, draft_params, tokens=tok, positions=pos,
                          caches=draft_caches, mode="decode",
-                         head_w=draft_head_w, decode_width=decode_width)
+                         head_w=draft_head_w, decode_width=decode_width,
+                         long_ctx=long_ctx)
         nxt = sample_logits(logits[:, -1], temperature=temperature,
                             top_k=top_k, seed=seed, positions=pos[:, 0] + 1)
         drafts.append(nxt)
         tok, pos = nxt[:, None], pos + 1
     forward(draft_cfg, draft_params, tokens=tok, positions=pos,
             caches=draft_caches, mode="decode", return_hidden=True,
-            decode_width=decode_width)
+            decode_width=decode_width, long_ctx=long_ctx)
     drafts = torch.stack(drafts, 1)                           # (B, k)
     S = k + 1
     chunk = torch.cat([tokens.to(torch.int32), drafts], 1)     # (B, S)
@@ -345,7 +414,8 @@ def spec_round(cfg, params, draft_cfg, draft_params, tokens, positions,
         S, dtype=torch.int32, device=tokens.device)
     logits = forward(cfg, params, tokens=chunk, positions=cpos,
                      caches=caches, mode="verify", head_w=head_w,
-                     partition=partition)
+                     decode_width=decode_width, partition=partition,
+                     long_ctx=long_ctx)
     flat = logits.reshape(B * S, logits.shape[-1])
     if temperature is None:
         verify = sample_logits(flat)
@@ -392,7 +462,7 @@ def sample_logits(logits, *, temperature=None, top_k=None, seed=None,
 def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
                    active=None, budget=None, eos_id=None, temperature=None,
                    top_k=None, seed=None, plain_attention=False,
-                   head_w=None, decode_width=None):
+                   head_w=None, decode_width=None, long_ctx=False):
     """Masked, sampled multi-step decode over a fixed-width batch.
 
     tokens (B, 1): the token each row just generated; positions (B, 1):
@@ -409,8 +479,8 @@ def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
     Returns (toks (B, n_steps) int32, emitted (B, n_steps) bool, state,
     caches), ``state`` = {tok, pos, active, budget, eos_hit} for a next
     segment. The steps are a Python loop that never waits for the device;
-    the head matrix is cast once per call (``head_w``); ``decode_width``,
-    see ``forward``."""
+    the head matrix is cast once per call (``head_w``); ``decode_width``
+    and ``long_ctx``, see ``forward``."""
     B, dev = tokens.shape[0], tokens.device
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
            else active.to(torch.bool))
@@ -427,7 +497,7 @@ def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
         logits = forward(cfg, params, tokens=tok, positions=pos,
                          caches=caches, mode="decode",
                          plain_attention=plain_attention, head_w=head_w,
-                         decode_width=decode_width)
+                         decode_width=decode_width, long_ctx=long_ctx)
         nxt = sample_logits(logits[:, -1], temperature=temperature,
                             top_k=top_k, seed=seed, positions=pos[:, 0] + 1)
         emit = act
@@ -448,10 +518,12 @@ def decode_segment(cfg, params, tokens, positions, caches, *, n_steps: int,
     return torch.stack(toks, 1), torch.stack(emits, 1), state, caches
 
 
-def decode_loop(cfg, params, tokens, positions, caches, *, n_steps: int):
+def decode_loop(cfg, params, tokens, positions, caches, *, n_steps: int,
+                long_ctx=False):
     """Greedy multi-token decode: the always-active, argmax-only case of
     ``decode_segment``. Returns (generated (B, n_steps) int32, caches);
     column t is the token decoded t+1 steps after ``tokens``."""
     toks, _, _, caches = decode_segment(cfg, params, tokens, positions,
-                                        caches, n_steps=n_steps)
+                                        caches, n_steps=n_steps,
+                                        long_ctx=long_ctx)
     return toks, caches

@@ -36,9 +36,10 @@ the best parked one. With ``weight_quant="int8"`` the engine quantizes
 the tree once at init and every projection runs K3; with
 ``kv_quant="int8"`` (decoder mode) the caches hold int8 K/V with fp32
 scale planes; both for the plain ``("attn",)`` stack only. The decoder
-serves the RecurrentGemma hybrid too: its caches hold local-attention
-rings of ``min(bucket + max_new_tokens, window)`` slots and the RG-LRU
-blocks' recurrent states. ``prefill_chunk`` prefills a prompt longer
+serves the RecurrentGemma hybrid and gemma2's alternating local and
+global layers too: their caches hold local-attention rings of
+``min(bucket + max_new_tokens, window)`` slots (and the RG-LRU blocks'
+recurrent states). ``prefill_chunk`` prefills a prompt longer
 than one chunk chunk by chunk into a per-lane staging pool, one chunk per
 scheduler turn between decode segments, one captured program per (bucket,
 rows, chunk, sampled); ``prefix_cache`` keeps finished prompts' KV at
@@ -167,11 +168,16 @@ def _tree_map(fn, tree):
 # bits change with M below 128 rows (cuBLAS takes other kernels for
 # float weights there, K3 its split-K path up to 64 rows), while at the
 # M that chip_smoke phase 22 measures from 128 up (every join size of
-# its continuous loads) they do not. So the captured prefills pad a
-# batch with copies of its first row to at least PREFILL_MIN_M rows of
-# M. A decode step takes K2's split count from ``max_batch``, not from
-# the width it runs at (``forward``'s ``decode_width``), since the split
-# count sets the order of K2's fold.
+# its continuous loads) they do not, with the port's cublasLt (see the
+# package's docstring: cuBLAS split stablelm's and gemma2's w_down at 128
+# rows). So the captured prefills pad a batch with copies of its first
+# row to at least PREFILL_MIN_M rows of M. A decode step takes K2's
+# split count from ``max_batch``, not from the width it runs at
+# (``forward``'s ``decode_width``), since the split count sets the order
+# of K2's fold, and runs its row-wise products at M = ``max_batch``
+# (``forward`` pads the hidden states with zero rows): at 1-8 rows the
+# libraries split gemma2's w_down and RecurrentGemma's (4096, 4096)
+# products otherwise.
 PREFILL_MIN_M = 128
 
 
@@ -231,7 +237,8 @@ def _check_config(ec: EngineConfig, cfg, draft_cfg=None,
         if C is None:
             raise ValueError("prefix_cache requires prefill_chunk: chunk "
                              "boundaries define the prefix granularity")
-        if any(k != "attn" for k in cfg.pattern) or cfg.enc_layers:
+        if any(k not in ("attn", "attn_global") for k in cfg.pattern) \
+                or cfg.enc_layers:
             raise ValueError(
                 f"prefix_cache requires a pure global-attention pattern: "
                 f"sliding-window rings and recurrent states cannot be "
@@ -244,7 +251,8 @@ def _check_config(ec: EngineConfig, cfg, draft_cfg=None,
             raise ValueError("spec_decode requires draft=(draft_cfg, "
                              "draft_params) at engine construction")
         for role, c in (("target", cfg), ("draft", draft_cfg)):
-            if any(k != "attn" for k in c.pattern) or c.enc_layers:
+            if any(k not in ("attn", "attn_global") for k in c.pattern) \
+                    or c.enc_layers:
                 raise ValueError(
                     f"spec_decode requires a pure global-attention {role} "
                     f"pattern: per-row KV rollback cannot rewind "

@@ -138,7 +138,7 @@ def _scatter_rollback(caches, batch, idx, boundary, rows=None):
 
 
 class CachePool:
-    def __init__(self, cfg, n_slots: int, max_len: int, *,
+    def __init__(self, cfg, n_slots: int, max_len: int, *, long_ctx=False,
                  dtype=torch.bfloat16, kv_quant=None, device=None):
         self.cfg = cfg
         self.n_slots = n_slots
@@ -147,12 +147,16 @@ class CachePool:
         self.device = resolve_device(device)
         # kv_quant="int8": slots hold int8 K/V plus per-(position, head)
         # scale planes, extra leaves every helper carries
-        self.caches = make_caches(cfg, n_slots, max_len, dtype=dtype,
-                                  kv_quant=kv_quant, device=self.device)
+        # long_ctx: the global layers' slots capped as make_caches caps
+        # them
+        self.caches = make_caches(cfg, n_slots, max_len, long_ctx=long_ctx,
+                                  dtype=dtype, kv_quant=kv_quant,
+                                  device=self.device)
         # single-slot template keeping each leaf's "empty" value (the
         # attention cache's pos = -1 sentinel)
-        self._template = make_caches(cfg, 1, max_len, dtype=dtype,
-                                     kv_quant=kv_quant, device=self.device)
+        self._template = make_caches(cfg, 1, max_len, long_ctx=long_ctx,
+                                     dtype=dtype, kv_quant=kv_quant,
+                                     device=self.device)
         self.request_of = [None] * n_slots       # slot -> request id
         self.lengths = [0] * n_slots
 

@@ -510,6 +510,41 @@ def test_forward_logits_match_jax_in_full_and_decode_mode(jx, weights):
                                   np.asarray(jc["blk0"]["len"]))
 
 
+def test_decode_at_a_padded_width_matches_jax(jx, weights):
+    """Decode steps at a ``decode_width`` above B, as the continuous
+    engine runs its narrow tiers: the hidden states carry zero rows past
+    the batch through every row-wise product, and the batch rows' logits
+    and caches still match JAX's decode (1e-4; positions exactly)."""
+    jp, tp = weights
+    jnp, jt = jx["jnp"], jx["jt"]
+    B, S, L, steps = 2, 9, 16, 4
+    toks = _prompts(B, S, seed=17)
+    jc = jt.make_caches(jx["cfg"], B, L, dtype=jnp.float32)
+    _, jc, _ = jt.forward(jx["cfg"], jp, tokens=jnp.asarray(toks),
+                          caches=jc, mode="full")
+    tc = make_caches(CFG, B, L, dtype=torch.float32, device="cpu")
+    forward(CFG, tp, tokens=torch.from_numpy(toks), caches=tc, mode="full")
+    nxt = np.random.default_rng(18).integers(0, CFG.vocab_size, (B, steps))
+    for t in range(steps):
+        pos = np.full((B, 1), S + t, np.int32)
+        jlog, jc, _ = jt.forward(jx["cfg"], jp,
+                                 tokens=jnp.asarray(nxt[:, t:t + 1]),
+                                 positions=jnp.asarray(pos), caches=jc,
+                                 mode="decode")
+        tlog = forward(CFG, tp, tokens=torch.from_numpy(nxt[:, t:t + 1]),
+                       positions=torch.from_numpy(pos), caches=tc,
+                       mode="decode", decode_width=5)
+        assert tlog.shape[0] == B
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   atol=ATOL, rtol=0)
+    for key in ("pos", "len"):
+        np.testing.assert_array_equal(tc["blk0"][key].numpy(),
+                                      np.asarray(jc["blk0"][key]))
+    np.testing.assert_allclose(tc["blk0"]["k"].numpy(),
+                               np.asarray(jc["blk0"]["k"]), atol=1e-5,
+                               rtol=0)
+
+
 def _sampling(B, seed):
     rng = np.random.default_rng(seed)
     temp = np.where(rng.random(B) < 0.5, 0.0, rng.uniform(0.5, 1.5, B))
@@ -697,9 +732,9 @@ def test_decoder_gates_raise(weights):
     for key in ("k_scale", "v_scale"):
         assert q8[key].dtype == torch.float32 and not q8[key].any()
         assert tuple(q8[key].shape) == (1, 8, CFG.n_kv_heads)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        forward(dataclasses.replace(CFG, n_heads=32, n_kv_heads=16,
-                                    head_dim=16), tp, tokens=tok)
+    fused = dataclasses.replace(CFG, n_heads=32, n_kv_heads=16, head_dim=16)
+    out = forward(fused, init_params(fused, 0, device="cpu"), tokens=tok)
+    assert tuple(out.shape[:2]) == (1, 1) and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError, match="naive_attention"):
         ops.attn_block_sizes("chunk", 16)
 
@@ -713,7 +748,7 @@ def test_decoder_gates_raise(weights):
 @pytest.mark.parametrize("case", sorted(K2_CASES))
 def test_k2_cuda_kernel_matches_plain(case, q_dtype, kv_dtype, tol):
     torch.backends.cuda.matmul.allow_tf32 = False
-    for D in (64, 128):
+    for D in (64, 128, 160):
         q, k, v, q_pos, kv_pos, kw = _k2_inputs(case, D=D)
         qq, kk, vv, qp, kvp = (t.cuda() for t in _tensors(q, k, v, q_pos,
                                                           kv_pos))

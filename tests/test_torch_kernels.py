@@ -205,7 +205,7 @@ def test_block_sizes_are_built_tiles():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 160, 256])
 def test_block_sizes_are_built_tiles_at_every_head_dim(head_dim, dtype):
     """``attn_block_sizes`` returns only tiles the kernel is built for:
     bq from its q tiles, bk its one kv tile for (dtype, head dim)."""
@@ -261,7 +261,7 @@ def test_cuda_kernel_matches_plain(case, dtype, tol):
 @requires_cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 160, 256])
 @pytest.mark.parametrize("case", sorted(CASES) + sorted(
     f"bk64_{c}" for c in CASES_BK64))
 def test_cuda_kernel_matches_plain_at_every_built_tile(case, head_dim,
