@@ -12,6 +12,12 @@ decode widths (M = 1..32 against 16). Prints, per library and range,
 the shapes whose rows part and by how much, and each library's summed
 time of the projections at M = 8192 and 16 (CUDA events, 20 calls after
 3), beside the card's name and power limit. Exits non-zero without CUDA.
+
+    python3 chip_blas_rows.py --scan K N
+
+prints instead, under cublasLt, the groups of M (128 to 4096 in steps of
+32) whose first 128 rows of ``x[:M] @ w`` are the same bits, for one
+(K, N): where a prefill's M may fall for a model with that product.
 The port prefers cublasLt on the card (set when ``repro_torch`` is
 imported) and pads a decode step's rows to the engine's ``max_batch``
 (``forward``'s ``decode_width``); this script is the measurement behind
@@ -75,6 +81,25 @@ def parts(gen):
     return bad, ms
 
 
+def scan(K, N, Ms=range(128, 4097, 32)):
+    """Groups of M (in order of first appearance) whose rows 0-127 of a
+    (M, K) x (K, N) bf16 product are the same bits."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    w = (torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5).bfloat16()
+    x = torch.randn(max(Ms), K, device="cuda", generator=gen).bfloat16()
+    groups = []
+    for M in Ms:
+        rows = (x[:M] @ w)[:128]
+        for g in groups:
+            if torch.equal(g[0], rows):
+                g[1].append(M)
+                break
+        else:
+            groups.append((rows, [M]))
+    return [ms for _, ms in groups]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_blas_rows: CUDA is not available", file=sys.stderr)
@@ -83,6 +108,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    if sys.argv[1:2] == ["--scan"]:
+        K, N = int(sys.argv[2]), int(sys.argv[3])
+        torch.backends.cuda.preferred_blas_library("cublaslt")
+        for i, ms in enumerate(scan(K, N)):
+            print(f"cublaslt K={K} N={N}: bits {i}: M = {ms} [{card}]",
+                  flush=True)
+        return 0
     for lib in ("cublas", "cublaslt"):
         torch.backends.cuda.preferred_blas_library(lib)
         gen = torch.Generator(device="cuda")

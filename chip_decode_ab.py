@@ -1,22 +1,26 @@
-"""Time the continuous decoder's captured decode segment on one NVIDIA
-H100 at its narrowest and its widest width tier, so that two checkouts
-can be compared on one card: Qwen2-0.5B (bf16, random weights from seed
-0) through the continuous engine as ``chip_smoke.py``'s phase 23 builds
-it (max_batch 16, buckets 32/64/128, 16 new tokens, 4-step segments),
-float and int8 W+KV, bucket 128.
+"""Time the continuous decoder's captured programs on one NVIDIA H100:
+the decode segment at its narrowest and its widest width tier, and a
+join of one prompt's prefill at each bucket, so that two checkouts can
+be compared on one card. The model (bf16, random weights from seed 0)
+runs through the continuous engine as ``chip_smoke.py``'s phase 23
+builds it (max_batch 16, buckets 32/64/128, 16 new tokens, 4-step
+segments); Qwen2-0.5B float and int8 W+KV, RecurrentGemma-9B float (its
+int8 weights are not ported). The segment runs over bucket 128.
 
     python3 chip_decode_ab.py [--src DIR] [--label NAME] [--blas LIB]
+                              [--model NAME]
 
 ``--src`` is the directory ``repro_torch`` is imported from (default:
 ``src`` beside this file), so that a second checkout unpacked under a
 git-ignored directory (``git archive``) is timed by the same script; each
 checkout builds its kernels under its own ``build/``. ``--blas cublas``
 or ``cublaslt`` sets PyTorch's preferred BLAS library after the import
-(default: whatever the checkout sets). Walls on the host's clock move
+(default: whatever the checkout sets). ``--model`` is ``qwen2-0.5b``
+(default) or ``recurrentgemma-9b``. Walls on the host's clock move
 between machines and calls, so compare two checkouts only within one
-call, run as A, B, B, A. For each (weights, width) it prints one JSON
-line: the segment program's walls (host clock, one replay with its input
-and output copies a call; 40 calls after the capture and 3 more), their
+call, run as A, B, B, A. For each (weights, program) it prints one JSON
+line: the program's walls (host clock, one replay with its input and
+output copies a call; 40 calls after the capture and 3 more), their
 median, the summed device time of its kernels over one more call under
 the profiler, and the tokens of the first row, so that two checkouts
 can be seen to serve the same tokens. The card's name and power limit
@@ -65,39 +69,56 @@ def kernels_ms(fn):
     return busy or None
 
 
-def segments(label, quant):
+def timed(call):
+    """(first result, walls ms, median ms, kernels ms) of ``call``: the
+    first call captures its program, 3 more warm it."""
+    out = call()
+    for _ in range(3):
+        call()
+    walls = []
+    for _ in range(CALLS):
+        t0 = time.perf_counter()
+        call()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, walls, float(np.median(walls)), kernels_ms(call)
+
+
+def programs(label, model, quant):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving import EngineConfig, ServingEngine
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(model)
     params = init_params(cfg, 0, device="cuda")
     eng = ServingEngine(cfg, params, EngineConfig(
         **ENGINE, weight_quant=quant, kv_quant=quant), device="cuda")
+    head = {"label": label, "model": model, "weights": quant or "bf16",
+            "blas": str(torch.backends.cuda.preferred_blas_library())}
+    rng = np.random.default_rng(5)
+    for bucket in ENGINE["pad_buckets"]:
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :bucket - 3] = rng.integers(0, cfg.vocab_size, bucket - 3)
+        lens = np.array([bucket - 3], np.int32)
+        first, walls, med, kms = timed(
+            lambda: eng._prefill_call(bucket, toks, lens, [0]))
+        print(json.dumps({**head, "program": "prefill", "join": 1,
+                          "bucket": bucket, "median_ms": med,
+                          "walls_ms": [round(w, 4) for w in walls],
+                          "kernels_ms": kms,
+                          "first_token": first.tolist()}), flush=True)
     for width in (eng._tiers[0], eng._tiers[-1]):
         rows = (np.full((width, 1), 7, np.int32),
                 np.full((width, 1), 5, np.int32), np.ones(width, bool),
                 np.full(width, 99, np.int32), np.full(width, -1, np.int32))
         kw = (dict(slots=list(range(width)))
               if width < eng.ec.max_batch else {})
-
-        def call():
-            return eng._segment_call(BUCKET, width, rows, **kw)
-        toks = call()[0]                     # captures the program
-        for _ in range(3):
-            call()
-        walls = []
-        for _ in range(CALLS):
-            t0 = time.perf_counter()
-            call()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        print(json.dumps({
-            "label": label, "weights": quant or "bf16", "bucket": BUCKET,
-            "width": width, "steps": eng.ec.decode_segment,
-            "blas": str(torch.backends.cuda.preferred_blas_library()),
-            "median_ms": float(np.median(walls)),
-            "walls_ms": [round(w, 4) for w in walls],
-            "kernels_ms": kernels_ms(call),
-            "row0_tokens": toks[0].tolist()}), flush=True)
+        out, walls, med, kms = timed(
+            lambda: eng._segment_call(BUCKET, width, rows, **kw))
+        print(json.dumps({**head, "program": "segment", "bucket": BUCKET,
+                          "width": width, "steps": eng.ec.decode_segment,
+                          "median_ms": med,
+                          "walls_ms": [round(w, 4) for w in walls],
+                          "kernels_ms": kms,
+                          "row0_tokens": out[0][0].tolist()}), flush=True)
     del eng, params
     torch.cuda.empty_cache()
 
@@ -108,6 +129,8 @@ def main(argv=None):
                                          / "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--blas", choices=("cublas", "cublaslt"))
+    ap.add_argument("--model", default="qwen2-0.5b",
+                    choices=("qwen2-0.5b", "recurrentgemma-9b"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("CUDA is not available: the segments run on the card",
@@ -123,8 +146,9 @@ def main(argv=None):
         torch.backends.cuda.preferred_blas_library(args.blas)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card(), flush=True)
-    for quant in (None, "int8"):
-        segments(args.label, quant)
+    for quant in ((None, "int8") if args.model == "qwen2-0.5b"
+                  else (None,)):
+        programs(args.label, args.model, quant)
     return 0
 
 

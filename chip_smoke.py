@@ -1401,13 +1401,16 @@ def phase_hybrid_k1_timing(fa, attn_block_sizes, name):
 # --------------------------------------------------------- int8 serving
 def proj_shapes(cfg):
     """(K, N) -> projection names of one layer's int8 matmuls, in
-    ``qeinsum``'s (M, K) x (K, N) view."""
+    ``qeinsum``'s (M, K) x (K, N) view (a fused ``wqkv`` is one)."""
     d, hd = cfg.d_model, cfg.head_dim_
     q, kv, f = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff
     mlp = [("w_in", d, 2 * f)] if cfg.gated_mlp else [("w_up", d, f)]
+    qkv = ([("wqkv", d, q + 2 * kv)] if cfg.fused_qkv else
+           [("wq", d, q), ("wk", d, kv), ("wv", d, kv)])
+    # an MoE block's experts stay float: only the attention's are int8
+    ffn = [] if cfg.moe is not None else [*mlp, ("w_down", f, d)]
     shapes = {}
-    for name, K, N in [("wq", d, q), ("wk", d, kv), ("wv", d, kv),
-                       ("wo", q, d), *mlp, ("w_down", f, d)]:
+    for name, K, N in [*qkv, ("wo", q, d), *ffn]:
         shapes.setdefault((K, N), []).append(name)
     return {kn: "/".join(names) for kn, names in shapes.items()}
 
@@ -1439,7 +1442,9 @@ def int8_inputs(gen, M, K, N, dtype):
 
 def phase_matmul_parity(i8, cfgs):
     """K3 and K4 against their plain versions at every (K, N) of the
-    main paths (GECToR-base's and Qwen2-0.5B's projections) for M = 1,
+    main paths (the int8 projections of ``cfgs``: GECToR-base's,
+    Qwen2-0.5B's, stablelm-12b's, and qwen2-moe-a2.7b's fused ``wqkv``
+    and ``wo``) for M = 1,
     2, 8, 16, 32, 64 and 4096, and at GECToR-base's for M = 96 (a partial
     64-row tile), 512 and 1024 (the ladder's batches of 3, 16 and 32 at
     bucket 32: the 64 x 64 and 128 x 192 tiles), at ragged shapes and at a K that is not a
@@ -1450,7 +1455,8 @@ def phase_matmul_parity(i8, cfgs):
     in bf16, rows of M = 1, 2, 4, 8 and 16 must be the same bits as the
     same rows in M = 32 (the split plan does not depend on M), and two
     launches at a decode and a large shape the same bits. Returns (K3's
-    and K4's bf16 error at MM_MAIN, settings checked)."""
+    and K4's bf16 error at MM_MAIN, settings checked, {shape: K3's bf16
+    error} at qwen2-moe-a2.7b's shapes)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(21)
     kn = {}
@@ -1517,7 +1523,10 @@ def phase_matmul_parity(i8, cfgs):
                                  f"N={N}")
         print(f"K3/K4 M={M} K={K} N={N}: two launches bit-equal", flush=True)
     return (errs[("K3", *MM_MAIN, torch.bfloat16)],
-            errs[("K4", *MM_MAIN, torch.bfloat16)], checked)
+            errs[("K4", *MM_MAIN, torch.bfloat16)], checked,
+            {f"M={M} K={K} N={N} {label}": errs[("K3", M, K, N,
+                                                 torch.bfloat16)]
+             for M, K, N, label in shapes if label.startswith("qwen2-moe")})
 
 
 def int8_hidden_gate(cfg, qtree, tokens, label):
@@ -1659,8 +1668,9 @@ def phase_matmul_timings(i8, shapes, name, int8pack=True):
     call at stablelm-12b's M=4096 ``w_in``). Each kernel's time is printed
     as a factor of ``torch.matmul`` beside its target (not gated).
     Returns {(M, K, N): (K3 row, K4 row)}, a row (ms, plain ms, bound ms,
-    bound by, library ms); a kernel's ms is its event time where the
-    profiler saw no kernel."""
+    bound by, library ms); a kernel's and a plain version's ms is its
+    event time where the profiler saw no kernel, the library call's its
+    ``graph_ms``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
     rows = {}
@@ -1690,8 +1700,15 @@ def phase_matmul_timings(i8, shapes, name, int8pack=True):
         b3, by3 = mm_bound_ms(M, K, N, 2, 1, True)
         b4, by4 = mm_bound_ms(M, K, N, 2, 2, False)
         # where the profiler saw no kernel, the event time stands in
+        # (``graph_ms`` for the library call: no host time to add)
         t3 = t3 if t3 is not None else cuda_ms(k3)
         t4 = t4 if t4 is not None else cuda_ms(k4)
+        t3p = t3p if t3p is not None else cuda_ms(
+            lambda: i8.int8_matmul_plain(x, qw, scale), iters=5)
+        t4p = t4p if t4p is not None else cuda_ms(
+            lambda: i8.cache_matmul_plain(x, w), iters=5)
+        t_lib = t_lib if t_lib is not None else graph_ms(
+            lambda: torch.matmul(x, w))
         target3 = MM_TARGET_DECODE if M <= 64 else MM_TARGET_LARGE
         target4 = "none" if M <= 64 else MM_TARGET_LARGE
 
@@ -4803,7 +4820,7 @@ def serve_twice(cfg, params, kernels, ec, load, label, name):
     steps = ecfg.decode_segment * win["decode_segments"]
     L = cfg.n_layers
     want = (L * win["prefill_batches"], L * steps,
-            6 * L * (win["prefill_batches"] + steps)
+            k3_per_layer(cfg) * L * (win["prefill_batches"] + steps)
             if ecfg.weight_quant else 0, 0, 0)
     print(f"{label}: first pass (captures {captures} programs as they "
           f"come) {t_first:.1f} s; second pass (replays) {len(load)} "
@@ -5197,26 +5214,7 @@ def phase_gemma2(fa, da, kernels, name):
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params
     from repro_torch.models.layers import head_weight, lm_head_apply
-    gc_mod.collect()
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    # each stream a cuBLAS handle ran on keeps its workspace in the caching
-    # allocator (every engine's capture stream since phase 4)
-    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear is not None:
-        clear()
-    torch.cuda.empty_cache()
-    mem0 = torch.cuda.memory_allocated()
-    print(f"gemma2-27b: {mem0:,} B allocated at the phase's start (limit "
-          f"2 GB; {held:,} B before the cuBLAS workspaces were freed)",
-          flush=True)
-    if mem0 >= 2e9:
-        live = sorted(((t.numel() * t.element_size(), tuple(t.shape),
-                        t.dtype) for t in gc_mod.get_objects()
-                       if isinstance(t, torch.Tensor) and t.is_cuda),
-                      key=lambda r: r[0], reverse=True)[:10]
-        raise AssertionError(f"{mem0:,} B still allocated before gemma2; "
-                             f"the largest live tensors: {live}")
+    empty_card("gemma2-27b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     k2_err = phase_gemma2_period(da, name)
@@ -5276,6 +5274,505 @@ def phase_gemma2(fa, da, kernels, name):
           f"{time.perf_counter() - t0:.1f} s [{name}]", flush=True)
     del params
     return served, k2_err
+
+
+# ------------------------------------------- 32. the MoE block: qwen2-moe
+# qwen2-moe-a2.7b's attention: 16 query heads over 16 kv heads of 128 (G
+# = 1 in K2), through the fused wqkv with its bias
+QWEN2_MOE = dict(Hq=16, Hkv=16, D=128)
+MOE_PREFILL = dict(B=16, S=512)         # K1 timed at the widest join
+MOE_DECODE = dict(B=16, L=512 + BIG_NEW)  # K2 over bucket 512's ring
+MOE_JOINS = (1, 4, 8, 16)               # 32 (c): join sizes held
+MOE_WIDTHS = (1, 16)                    # 32 (c): decode widths held
+MOE_SHORT = dict(B=2, S=512)            # 32 (a): the prompts compared
+# 32 (a) at 24 layers: K1 against plain attention may stray at most these
+# multiples of its one-layer reading: the max logit error, the mean, and
+# the share of top-1 disagreements. A routing flip turns a bf16 attention
+# difference into another expert mix, and the difference grows with
+# depth: on random weights the first card reading grew 2.7x (max), 10.2x
+# (mean) and 10.3x (disagreement, 2.7% to 28.1%; plain bf16 attention
+# against fp32 itself flips 28% at 24 layers; "NVIDIA H100 80GB HBM3,
+# 700.00 W"), so the limits are about twice the growth read (PERF.md).
+MOE_DEPTH_FACTORS = dict(max=5.0, mean=20.0, disagree=20.0)
+# 32 (d): the other MoE configs at full width, cut to two layers
+MOE_CUT_LAYERS = 2
+MOE_CUT = dict(B=4, S=128)
+MOE_CLASSES = ("attention", "router", "dispatch", "expert products",
+               "combine", "shared experts", "head")
+
+
+def k3_per_layer(cfg):
+    """K3 launches of one int8 layer: the q/k/v projections (one fused
+    ``wqkv`` or three), ``wo``, and a dense MLP's two (an MoE block's
+    experts stay float)."""
+    return (1 if cfg.fused_qkv else 3) + 1 + (0 if cfg.moe else 2)
+
+
+def empty_card(label):
+    """Free what earlier phases left (each stream a cuBLAS handle ran on
+    keeps its workspace in the caching allocator), then require less
+    than 2 GB still allocated; returns the bytes allocated."""
+    gc_mod.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    print(f"{label}: {mem0:,} B allocated at the phase's start (limit "
+          f"2 GB; {held:,} B before the cuBLAS workspaces were freed)",
+          flush=True)
+    if mem0 >= 2e9:
+        live = sorted(((t.numel() * t.element_size(), tuple(t.shape),
+                        t.dtype) for t in gc_mod.get_objects()
+                       if isinstance(t, torch.Tensor) and t.is_cuda),
+                      key=lambda r: r[0], reverse=True)[:10]
+        raise AssertionError(f"{mem0:,} B still allocated before {label}; "
+                             f"the largest live tensors: {live}")
+    return mem0
+
+
+def row_bits(cfg, params, label, *, buckets, joins, widths, step_bucket,
+             new_tokens, kv_quant=None, seed=322, min_m=None, gate=True):
+    """Phase 22's rule at a model's serving shapes: in each bucket, row
+    0's prefill hidden state and first-token logits in a join of every
+    size of ``joins``, padded as the engine pads it, against the widest
+    join; the widest join's prefill run twice (the same bits every
+    call); and at ``step_bucket`` row 0's decode-step logits at every
+    width of ``widths`` against the widest, at its K2 split count and M
+    (``decode_width``, as the engine runs). Every difference must be 0
+    (``gate``; without it they are printed only). ``min_m``: the rows of
+    M a join is padded to, default the engine's ``prefill_min_m(cfg)``.
+    Returns {key: max difference}."""
+    from repro_torch.models import forward, make_caches
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    from repro_torch.serving.engine import ServingEngine, prefill_min_m
+    rng = np.random.default_rng(seed)
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    wide = max(widths)
+    min_m = prefill_min_m(cfg) if min_m is None else min_m
+    out = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for bucket in buckets:
+            n_max = max(joins + (wide,) if bucket == step_bucket else joins)
+            _, toks, lens = prompt_batch(rng, n_max, 8, bucket - 8, bucket,
+                                         cfg.vocab_size)
+            tt = torch.from_numpy(toks).cuda()
+            lt = torch.from_numpy(lens).cuda()
+            L = bucket + new_tokens
+
+            def prefill(n):
+                idx = list(range(n)) + [0] * (
+                    ServingEngine._prefill_rows(n, bucket, min_m) - n)
+                caches = make_caches(cfg, len(idx), L, dtype=torch.float32,
+                                     kv_quant=kv_quant, device="cuda")
+                hid = forward(cfg, params, tokens=tt[idx], caches=caches,
+                              return_hidden=True)
+                last = hid[torch.arange(len(idx), device="cuda"),
+                           lt[idx] - 1][:, None]
+                return (hid[0, :lens[0]],
+                        lm_head_apply(cfg, None, last, w=w)[:, 0], caches)
+            ref = prefill(max(joins))
+            again = prefill(max(joins))
+            out[(bucket, "twice")] = max(max_diff(ref[0], again[0]),
+                                         max_diff(ref[1], again[1]))
+            del again
+            for n in joins[:-1]:
+                got = prefill(n)
+                out[(bucket, n)] = max(max_diff(got[0], ref[0]),
+                                       max_diff(got[1][0], ref[1][0]))
+                del got
+            if bucket != step_bucket:
+                del ref
+                continue
+            if max(joins) != wide:
+                ref = prefill(wide)
+            caches, tok = ref[2], ref[1].argmax(-1).to(torch.int32)[:, None]
+            del ref
+
+            def step(width):
+                return forward(cfg, params, tokens=tok[:width],
+                               positions=lt[:width, None],
+                               caches=slice_caches(caches, width),
+                               mode="decode", head_w=w,
+                               decode_width=wide)[0, 0]
+            top = step(wide)
+            for width in widths[:-1]:
+                out[("decode", width)] = max_diff(step(width), top)
+            del caches
+    bad = {k: d for k, d in out.items() if d != 0.0}
+    ms = {b: sorted({ServingEngine._prefill_rows(n, b, min_m) * b
+                     for n in joins}) for b in buckets}
+    print(f"row bits {label}: joins {joins} padded as the engine pads "
+          f"(M by bucket {ms}) against the widest, the widest run twice, "
+          f"decode widths {widths} at decode_width={wide} (L = "
+          f"{step_bucket + new_tokens}): {len(out) - len(bad)} of "
+          f"{len(out)} bit-equal; max differences {out} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if bad and gate:
+        raise AssertionError(f"{label}: a row's bits follow its batch or "
+                             f"its call: {bad}")
+    return out
+
+
+def moe_kernel_rows(fa, da, attn_block_sizes, name):
+    """32 (a) and (e): K1 and K2 at qwen2-moe's shapes against their plain
+    versions (phase 2's and 6's checks), then timed by ``graph_ms``
+    beside the bound, the plain version (profiler) and SDPA: K1 at the
+    widest bucket-512 join (B=16 S=512, 16/16 heads of 128, causal) and
+    K2 at G = 1 over bucket 512's ring (B=16 L=544, bf16 q, fp32 ring).
+    Returns ((K1 err, settings), (K2 err, settings), {label: (ms, plain
+    ms, sdpa ms, bound ms, bound by)})."""
+    m, p, dm = QWEN2_MOE, MOE_PREFILL, MOE_DECODE
+    bf16 = torch.bfloat16
+    bq = attn_block_sizes("prefill", p["S"], bh=p["B"] * m["Hq"],
+                          head_dim=m["D"], dtype=bf16)[0]
+    k1 = phase_kernel_parity(fa, [
+        ("G=1 D=128 causal", 2, 256, 256, 16, 16, 128, 64,
+         dict(causal=True)),
+        ("G=1 D=128 kv_len<S", 2, 256, 256, 16, 16, 128, 32,
+         dict(causal=True, kv_len=200)),
+        ("qwen2-moe prefill", p["B"], p["S"], p["S"], m["Hq"], m["Hkv"],
+         m["D"], bq, dict(causal=True, kv_len=p["S"]))],
+        main="qwen2-moe prefill")
+    k2 = phase_decode_parity(da, [
+        ("G=1 D=128 wrapped ring", 4, 160, 16, 16, 128, "ring", {}),
+        ("G=1 D=128 empty slots", 4, 256, 16, 16, 128, "holes", {}),
+        ("qwen2-moe decode", dm["B"], dm["L"], m["Hq"], m["Hkv"], m["D"],
+         "full", {})], main="qwen2-moe decode")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, H, D = p["B"], p["S"], m["Hq"], m["D"]
+    q, k, v = (randn(gen, B, S, H, D, dtype=bf16) for _ in range(3))
+    t_k = graph_ms(lambda: fa.flash_attention(q, k, v, bq=bq, causal=True))
+    t_p = device_ms(lambda: fa.flash_attention_plain(q, k, v, bq=bq,
+                                                     causal=True), iters=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t_s = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    bound, by = attn_bound_ms(B, S, S, H, H, D, 2, causal=True)
+    rows = {"prefill": (t_k, t_p, t_s, bound, by)}
+    print(f"timing K1 qwen2-moe prefill B={B} S={S} Hq=Hkv={H} D={D} bf16 "
+          f"causal bq={bq}: kernel (graph) {t_k:.4f} ms, plain (device "
+          f"time) {fmt_ms(t_p)}, sdpa (graph) {t_s:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}) [{name}]", flush=True)
+    del q, k, v, qt, kt, vt
+    B, L = dm["B"], dm["L"]
+    q = randn(gen, B, 1, H, D, dtype=bf16)
+    k, v = (randn(gen, B, L, H, D, dtype=torch.float32) for _ in range(2))
+    q_pos = np.full(B, L - 1, np.int32)
+    kv_pos = np.tile(np.arange(L, dtype=np.int32), (B, 1))
+    qp, kvp = (torch.from_numpy(x).cuda() for x in (q_pos, kv_pos))
+    t_k = graph_ms(lambda: da.decode_attention(q, k, v, qp, kvp))
+    t_p = device_ms(lambda: da.decode_attention_plain(q, k, v, qp, kvp),
+                    iters=3)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.to(bf16).transpose(1, 2) for x in (k, v))
+    mask = ((kvp >= 0) & (kvp <= qp[:, None]))[:, None, None, :]
+    t_s = graph_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    bound, by = decode_bound_ms(q_pos, kv_pos, H, H, D, 2, 4)
+    rows["decode"] = (t_k, t_p, t_s, bound, by)
+    print(f"timing K2 qwen2-moe decode B={B} L={L} Hq=Hkv={H} (G=1) D={D} "
+          f"bf16 q fp32 ring, {da.decode_splits(B, H, L)[0]} splits: "
+          f"kernel (graph) {t_k:.4f} ms, plain (device time) {fmt_ms(t_p)}, "
+          f"sdpa (graph) {t_s:.4f} ms, bound {bound:.5f} ms ({by}) "
+          f"[{name}]", flush=True)
+    return k1, k2, rows
+
+
+def moe_logits(cfg, params, toks, plain, w=None):
+    """fp32 logits (B*S, V) of every position of ``toks`` over the real
+    vocabulary (plain attention with ``plain``)."""
+    from repro_torch.models import forward
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    hid = forward(cfg, params, tokens=toks, return_hidden=True,
+                  plain_attention=plain)
+    if w is None:
+        w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    lg = lm_head_apply(cfg, None, hid, w=w)[..., :cfg.vocab_size]
+    return lg.reshape(-1, cfg.vocab_size)
+
+
+def k1_against_plain(a, b):
+    """(max, mean abs logit difference, top-1 agreement) of two paths."""
+    d = (a - b).abs()
+    return (d.max().item(), d.mean().item(),
+            (a.argmax(-1) == b.argmax(-1)).float().mean().item())
+
+
+def moe_depth_gate(fa, cfg, params, name):
+    """32 (a). qwen2-moe in bf16 through K1 and through plain attention
+    against fp32, by phase 7's rule, on every position of 2 prompts of
+    512 tokens: at one layer (the fp32 copy of that layer), then at 24
+    layers (``hidden_fp32_by_layer``: each block cast to fp32 while it
+    runs); K1 against plain attention at 24 layers held to
+    MOE_DEPTH_FACTORS x the one-layer reading (max, mean, top-1
+    disagreement). Returns the readings."""
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    rng = np.random.default_rng(321)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_SHORT["B"], MOE_SHORT["S"]))).cuda()
+    rows = MOE_SHORT["B"] * MOE_SHORT["S"]
+    c1, p1 = one_period(cfg, params)
+    c32 = dataclasses.replace(c1, dtype="float32")
+    readings = {}
+    with torch.inference_mode():
+        lg = {"kernels bf16": moe_logits(c1, p1, toks, False),
+              "plain bf16": moe_logits(c1, p1, toks, True),
+              "fp32": moe_logits(c32, to_fp32(p1), toks, True)}
+        bf16_rule(against_fp32(lg, "qwen2-moe one layer",
+                               f"{rows} positions"), rows, "32 (a)")
+        readings[1] = k1_against_plain(lg["kernels bf16"], lg["plain bf16"])
+        del lg
+        w = head_weight(cfg, params.get("lm_head"), params["embed"])
+        k1_0 = fa.flash_attention.launches
+        lg = {"kernels bf16": moe_logits(cfg, params, toks, False, w)}
+        k1 = fa.flash_attention.launches - k1_0
+        lg["plain bf16"] = moe_logits(cfg, params, toks, True, w)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        hid = hidden_fp32_by_layer(cfg, params, toks)
+        lg["fp32"] = lm_head_apply(cfg32, None, hid, w=w.float())[
+            ..., :cfg.vocab_size].reshape(rows, -1)
+        del hid, w
+        bf16_rule(against_fp32(lg, f"qwen2-moe {cfg.n_layers} layers",
+                               f"{rows} positions"), rows,
+                  "32 (a) at 24 layers")
+        readings[cfg.n_layers] = k1_against_plain(lg["kernels bf16"],
+                                                  lg["plain bf16"])
+        del lg
+    one, full = readings[1], readings[cfg.n_layers]
+    f = MOE_DEPTH_FACTORS
+    lim = (f["max"] * one[0], f["mean"] * one[1],
+           1 - f["disagree"] * (1 - one[2]))
+    print(f"qwen2-moe K1 against plain attention, {rows} positions: one "
+          f"layer max {one[0]:.4e} mean {one[1]:.4e} top-1 agreement "
+          f"{one[2]:.4f}; {cfg.n_layers} layers ({k1} K1 launches) max "
+          f"{full[0]:.4e} mean {full[1]:.4e} agreement {full[2]:.4f} "
+          f"(limits {lim[0]:.4e}, {lim[1]:.4e}, at least {lim[2]:.4f}) "
+          f"[{name}]", flush=True)
+    if k1 != cfg.n_layers or full[0] > lim[0] or full[1] > lim[1] \
+            or full[2] < lim[2]:
+        raise AssertionError(f"32 (a): K1 launches {k1}; K1 against plain "
+                             f"at depth {full} beyond {lim}")
+    return readings
+
+
+def moe_step_breakdown(cfg, params, name, width=16, bucket=128):
+    """32 (e). qwen2-moe's decode step at width 16 over bucket 128's ring
+    (greedy): the captured program's wall, kernels and device idle
+    (``program_reading``), and an uncaptured step's device time by op
+    class (the profiler's kernels under a ``record_function`` range
+    around each class's function: attention, router, dispatch, expert
+    products, combine, shared experts, head; the rest is norms,
+    residuals and the embedding). Returns (captured reading, {class:
+    ms})."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as am
+    from repro_torch.models import forward, make_caches
+    from repro_torch.models import moe as mm
+    from repro_torch.models import transformer as tm
+    from repro_torch.models.layers import head_weight
+    from repro_torch.serving.graphs import GraphCache
+    rng = np.random.default_rng(325)
+    _, toks, lens = prompt_batch(rng, width, 8, bucket - 8, bucket,
+                                 cfg.vocab_size)
+    tt, lt = (torch.from_numpy(x).cuda() for x in (toks, lens))
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    caches = make_caches(cfg, width, bucket + BIG_NEW, dtype=torch.float32,
+                         device="cuda")
+    with torch.inference_mode():
+        forward(cfg, params, tokens=tt, caches=caches, return_hidden=True)
+        tok = tt[:, :1].to(torch.int32)
+
+        def prog(t, p):
+            return forward(cfg, params, tokens=t, positions=p, caches=caches,
+                           mode="decode", head_w=w)[:, 0]
+        gc = GraphCache("cuda")
+        args = (tok, lt[:, None])
+        cap = program_reading(lambda: gc.run(("moe step",), prog, *args))
+        hooks = [(am, "attn_decode", "attention"), (mm, "route", "router"),
+                 (mm, "dispatch", "dispatch"), (mm, "gather", "dispatch"),
+                 (mm, "experts", "expert products"),
+                 (mm, "combine", "combine"),
+                 (mm, "shared", "shared experts"), (tm, "_final", "head")]
+        orig = [(mod, fn, getattr(mod, fn)) for mod, fn, _ in hooks]
+
+        def labelled(f, label):
+            def g(*a, **k):
+                with record_function(label):
+                    return f(*a, **k)
+            return g
+        n = 3
+        try:
+            for mod, fn, label in hooks:
+                setattr(mod, fn, labelled(getattr(mod, fn), label))
+            prog(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    prog(*args)
+                torch.cuda.synchronize()
+        finally:
+            for mod, fn, f in orig:
+                setattr(mod, fn, f)
+    del caches
+    by = {c: 0.0 for c in MOE_CLASSES}
+    for e in prof.events():
+        if e.name in by and "cpu" in str(e.device_type).lower():
+            by[e.name] += e.device_time_total / n / 1e3
+    # the ranges' own device-side spans are not kernels
+    total = sum(r[0] for r in kernel_rows(prof, n) if r[2] not in by)
+    by["other"] = total - sum(by[c] for c in MOE_CLASSES)
+    print(f"qwen2-moe decode step B={width} L={bucket + BIG_NEW} greedy, "
+          f"captured: {fmt_reading(cap)}; uncaptured kernels {total:.4f} ms "
+          f"by op class: "
+          + ", ".join(f"{c} {ms:.4f} ms ({ms / total:.1%})"
+                      for c, ms in by.items())
+          + f" [{name}]", flush=True)
+    return cap, by
+
+
+def phase_moe_cut(fa, da, name):
+    """32 (d). moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b at full width
+    cut to MOE_CUT_LAYERS layers (phi3.5's 32 layers take about 84 GB in
+    bf16, past one card; moonshot's 48 about 58 GB beside the fp32
+    reference): one prefill of 4 prompts of 128 tokens and one decode
+    step, through K1/K2 and through plain attention, each against the
+    fp32 copy by phase 7's rule over every prefill position and the
+    step's rows. Returns {config: (K1, K2 launches)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, make_caches
+    from repro_torch.models.layers import head_weight, lm_head_apply
+    out = {}
+    for arch in ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=MOE_CUT_LAYERS)
+        print(f"{arch}: cut from {full.n_layers} to {cfg.n_layers} layers "
+              f"at full width (d {cfg.d_model}, {cfg.moe.num_experts} "
+              f"experts top-{cfg.moe.top_k}, d_ff {cfg.moe.expert_d_ff}): "
+              f"its {full.n_layers} layers take "
+              f"{2 * full.param_count() / 1e9:.1f} GB in bf16, and the "
+              f"check needs an fp32 copy beside the bf16 one", flush=True)
+        params = init_params(cfg, 0, device="cuda")
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = to_fp32(params)
+        B, S = MOE_CUT["B"], MOE_CUT["S"]
+        rng = np.random.default_rng(326)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (B, S))).cuda()
+        lg, k1, k2 = {}, 0, 0
+        with torch.inference_mode():
+            for path, c, p, plain in (("kernels bf16", cfg, params, False),
+                                      ("plain bf16", cfg, params, True),
+                                      ("fp32", c32, p32, True)):
+                caches = make_caches(c, B, S + 8, dtype=torch.float32,
+                                     device="cuda")
+                w = head_weight(c, p.get("lm_head"), p["embed"])
+                l0 = (fa.flash_attention.launches,
+                      da.decode_attention.launches)
+                hid = forward(c, p, tokens=toks, caches=caches,
+                              return_hidden=True, plain_attention=plain)
+                pre = lm_head_apply(c, None, hid, w=w)[..., :c.vocab_size]
+                step = forward(c, p, tokens=toks[:, :1],
+                               positions=torch.full((B, 1), S,
+                                                    dtype=torch.int32,
+                                                    device="cuda"),
+                               caches=caches, mode="decode",
+                               plain_attention=plain, head_w=w)
+                lg[path] = torch.cat([pre.reshape(-1, c.vocab_size),
+                                      step[:, 0, :c.vocab_size]])
+                if not plain:
+                    k1 = fa.flash_attention.launches - l0[0]
+                    k2 = da.decode_attention.launches - l0[1]
+                del caches, hid, pre, step
+        rows = B * S + B              # every path steps on the same token
+        bf16_rule(against_fp32(lg, f"{arch} {cfg.n_layers} layers",
+                               f"{B * S} prefill positions + {B} decode "
+                               f"rows"), rows, f"32 (d) {arch}")
+        print(f"{arch} {cfg.n_layers} layers: K1 launches {k1}, K2 "
+              f"launches {k2} [{name}]", flush=True)
+        if (k1, k2) != (cfg.n_layers, cfg.n_layers):
+            raise AssertionError(f"32 (d) {arch}: K1/K2 launches {k1}, {k2}")
+        out[arch] = (k1, k2)
+        del params, p32, lg
+        gc_mod.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(fa, da, kernels, attn_block_sizes, name):
+    """32. qwen2-moe-a2.7b at full width and depth (24 layers, 16/16
+    heads of 128 through the fused ``wqkv`` with its bias, 60 experts
+    top-4 and 4 shared experts, random weights from ``init_params(
+    seed=0)``), bf16, with nothing else on the card: (a) K1 and K2 at its
+    shapes against their plain versions and timed; the bf16 rule at one
+    layer and at 24 layers, K1 against plain attention gated at depth;
+    (b) the default continuous decoder (max_batch 16, buckets 128 and
+    512, 32 new tokens): 32 requests, 16 of 8-120 tokens and 16 of
+    129-500, half sampled, served twice (``serve_twice``), float and then
+    int8 weights and KV; (c) phase 21's rule (``big_program_gates``) and
+    phase 22's at joins of 1, 4, 8 and 16 in buckets 128 and 512 and
+    decode widths 1 and 16, a prefill run twice; (e) the weights' bytes,
+    the peak memory and the captured decode step's breakdown; then (d)
+    the two MoE configs too large to serve whole, cut to two layers.
+    Returns (K1/K2 readings, timing rows, {path: K1..K5 launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import params_bytes
+    mem0 = empty_card("qwen2-moe-a2.7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    k1, k2, rows = moe_kernel_rows(fa, da, attn_block_sizes, name)
+    cfg = get_config("qwen2-moe-a2.7b")
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = params_bytes(params)
+    attn = params["blocks"]["blk0"]["attn"]
+    print(f"qwen2-moe-a2.7b: {cfg.n_layers} layers drawn in "
+          f"{time.perf_counter() - t0:.1f} s, attention leaves "
+          f"{ {k: tuple(t.shape) for k, t in attn.items()} }, weight bytes "
+          f"{nbytes:,} B ({cfg.param_count():,} parameters) [{name}]",
+          flush=True)
+    if set(attn) != {"wqkv", "bqkv", "wo"}:
+        raise AssertionError("qwen2-moe does not take the fused layout")
+    depth = moe_depth_gate(fa, cfg, params, name)
+    print(f"qwen2-moe-a2.7b: (a) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(32)
+    load = big_load(cfg, 32, 16, [int(x) for x in rng.integers(129, 501,
+                                                              16)])
+    base = dict(mode="decoder", max_batch=16, pad_buckets=BIG_BUCKETS,
+                max_new_tokens=BIG_NEW)
+    out = {}
+    for quant in (None, "int8"):
+        label = "qwen2-moe-a2.7b" + (" int8 W+KV" if quant else "")
+        out[label] = serve_twice(cfg, params, kernels,
+                                 dict(base, weight_quant=quant,
+                                      kv_quant=quant), load, label, name)
+    print(f"qwen2-moe-a2.7b: (b) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    big_program_gates(cfg, params, "qwen2-moe-a2.7b", name, width=16)
+    row_bits(cfg, params, "qwen2-moe-a2.7b", buckets=BIG_BUCKETS,
+             joins=MOE_JOINS, widths=MOE_WIDTHS, step_bucket=128,
+             new_tokens=BIG_NEW)
+    print(f"qwen2-moe-a2.7b: (c) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    moe_step_breakdown(cfg, params, name)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    print(f"qwen2-moe-a2.7b: weight bytes {nbytes:,} B; peak device memory "
+          f"{peak:,} B over the phase's start; (a)-(c), (e) "
+          f"{time.perf_counter() - t0:.1f} s [{name}]", flush=True)
+    del params
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    cut = phase_moe_cut(fa, da, name)
+    for arch, (n1, n2) in cut.items():
+        out[f"{arch} ({MOE_CUT_LAYERS} layers)"] = (n1, n2, 0, 0, 0)
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s", flush=True)
+    return (k1, k2, depth), rows, out
 
 
 def main() -> int:
@@ -5536,10 +6033,12 @@ def main() -> int:
           f"{dec_served['latency_p95_s'] * 1e3:.3f} ms, mean decode serve "
           f"{dec_served['decode_mean_s'] * 1e3:.3f} ms [{name}]", flush=True)
 
-    # ---- 10. K3 and K4 against their plain versions (stablelm-12b's
-    # shapes too: phase 30 serves it with int8 weights)
+    # ---- 10. K3 and K4 against their plain versions (stablelm-12b's and
+    # qwen2-moe-a2.7b's shapes too: phases 30 and 32 serve them with int8
+    # weights)
     scfg = get_config("stablelm-12b")
-    k3_err, k4_err, mm_checked = phase_matmul_parity(i8, (cfg, qcfg, scfg))
+    k3_err, k4_err, mm_checked, k3_moe_errs = phase_matmul_parity(
+        i8, (cfg, qcfg, scfg, get_config("qwen2-moe-a2.7b")))
 
     # ---- 11. GECToR-base, full width, bf16, int8 weights: K3 vs plain
     params = init_gector(cfg, vocab, 0, device="cuda")
@@ -5715,6 +6214,23 @@ def main() -> int:
           f"{hyb_bytes:,} [{name}]", flush=True)
     clock("phases 15-19")
 
+    # ---- 22, the hybrid: a row's bits across joins of 1-32 at buckets
+    # 32 and 128 (padded to its 448 rows of M; a join of 15 at bucket 32
+    # runs 480) and across decode widths
+    row_bits(hcfg, hparams, "RecurrentGemma-9B", buckets=(32, 128),
+             joins=(1, 2, 4, 8, 15, 16, 32), widths=(1, 2, 4, 8, 16),
+             step_bucket=32, new_tokens=NEW_TOKENS)
+    # printed beside: the joins padded to 128 (the dense models' floor),
+    # 256 and 384 rows of M (a join of 13 then runs 416), the faults the
+    # hybrid's floor avoids
+    for floor in (128, 256, 384):
+        row_bits(hcfg, hparams, f"RecurrentGemma-9B at {floor} rows of M",
+                 buckets=(32,), joins=(1, 2, 4, 8, 13, 16, 32),
+                 widths=(1, 16),
+                 step_bucket=32, new_tokens=NEW_TOKENS, min_m=floor,
+                 gate=False)
+    clock("phase 22, the hybrid")
+
     # ---- 24, the hybrid: chunked prefill at full depth
     hyb_chunked = phase_chunked_hybrid(hcfg, hparams, kernels, name)
     del hparams
@@ -5769,6 +6285,12 @@ def main() -> int:
         for M, what in ((16, "decode"), (4096, "prefill"))
         for (K, N), names in proj_shapes(scfg).items()], name,
         int8pack=False)
+    mcfg = get_config("qwen2-moe-a2.7b")
+    k3m_rows = phase_matmul_timings(i8, [
+        (M, K, N, f"qwen2-moe {what} {names}")
+        for M, what in ((16, "decode"), (4096, "prefill"))
+        for (K, N), names in proj_shapes(mcfg).items()], name,
+        int8pack=False)
     clock("phase 29")
 
     # ---- 30. stablelm-12b at 40 layers: float, int8 W+KV, prefix cache
@@ -5780,6 +6302,12 @@ def main() -> int:
     # ---- 31. gemma2-27b at 46 layers, fused wqkv, long_ctx at one period
     gem, k2l_err = phase_gemma2(fa, da, kernels, name)
     clock("phase 31")
+
+    # ---- 32. qwen2-moe-a2.7b at 24 layers: float, int8 W+KV, a row's
+    # bits; moonshot and phi3.5-moe cut to two layers
+    (k1m, k2m, _), moe_rows, moe = phase_moe(fa, da, kernels,
+                                             attn_block_sizes, name)
+    clock("phase 32")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -5805,13 +6333,14 @@ def main() -> int:
                 **train_paths(i), **big_paths(i)}
 
     def big_paths(i):
-        """Launches of counter i on phases 30 and 31's paths (the
-        second passes, and the prefix engine's warm one)."""
+        """Launches of counter i on phases 30-32's paths (the second
+        passes, the prefix engine's warm one, and 32 (d)'s cut models)."""
         int8 = "stablelm-12b int8 W+KV"
         return {"stablelm-12b": big["stablelm-12b"][i],
                 int8: big[int8][i],
                 "stablelm-12b prefix": big["stablelm-12b prefix"][i],
-                "gemma2-27b": gem[i]}
+                "gemma2-27b": gem[i],
+                **{path: n[i] for path, n in moe.items()}}
 
     def train_paths(i):
         """Launches of counter i (TRAIN_COUNTERS) on phase 28's paths."""
@@ -5852,6 +6381,10 @@ def main() -> int:
             hybrid_row(new_rows["stablelm prefill"], k1n_err, k1n_checked),
             ms_by="graph_ms (kernel, sdpa); plain by the profiler",
             shape="B=16 S=512 32/8 heads of 160, causal, bf16"),
+        "qwen2_moe_prefill": dict(
+            hybrid_row(moe_rows["prefill"], *k1m),
+            ms_by="graph_ms (kernel, sdpa); plain by the profiler",
+            shape="B=16 S=512 16/16 heads of 128, causal, bf16"),
         "gemma2_prefill": dict(
             hybrid_row(new_rows["gemma2 prefill"]),
             ms_by="graph_ms (kernel, sdpa without softcap); plain by the "
@@ -5881,6 +6414,10 @@ def main() -> int:
             hybrid_row(new_rows["gemma2 decode"]),
             shape="B=16 L=576 32/16 heads of 128, softcap 50 (sdpa "
                   "without), bf16 q, fp32 ring"),
+        "qwen2_moe_decode": dict(
+            hybrid_row(moe_rows["decode"], *k2m),
+            shape="B=16 L=544 16/16 heads of 128 (G=1), bf16 q, fp32 "
+                  "ring"),
         "long_ctx_max_abs_err": k2l_err,
         "verify": dict(hybrid_row(k2s_times, k2s_err, k2s_checked),
                        shape="B=16 S=5 L=532 14/2 heads of 64, bf16 q, "
@@ -5914,7 +6451,11 @@ def main() -> int:
         "registers": registers("int8_matmul"),
         "stablelm": {f"M={M} K={K} N={N}": dict(zip(
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
-            rows[0])) for (M, K, N), rows in k3s_rows.items()}}, {
+            rows[0])) for (M, K, N), rows in k3s_rows.items()},
+        "qwen2_moe": {f"M={M} K={K} N={N}": dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+            rows[0])) for (M, K, N), rows in k3m_rows.items()},
+        "qwen2_moe_max_abs_err": k3_moe_errs}, {
         "name": "cache_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/cache_matmul.py:43",

@@ -18,8 +18,11 @@ norms' ``bias`` leaves and its untied ``lm_head`` (``w`` as (d,
 padded_vocab)) included, and a gemma2 tree too: ``post_norm1`` and
 ``post_norm2`` beside each attention block's norms, and, where the config
 takes the fused layout (16 kv heads), ``wqkv`` as (d, Hkv, G + 2, hd)
-in place of ``wq``/``wk``/``wv``. A tree from the JAX ``quantize_params`` bridges as it
-is too: each quantized leaf stays a ``{"qw": int8, "scale": fp32}`` dict,
+in place of ``wq``/``wk``/``wv``. An MoE tree bridges as it is: each
+block's ``moe`` subtree in place of ``mlp``, its ``router`` (d, E) kept
+fp32, ``experts/w_in`` (E, d, 2, F), ``experts/w_down`` (E, F, d) and
+the ``shared`` experts' ``w_gate``/``w_up``/``w_down``. A tree from the
+JAX ``quantize_params`` bridges as it is too: each quantized leaf stays a ``{"qw": int8, "scale": fp32}`` dict,
 which the port's ``qeinsum`` reads. The caller converts the JAX arrays
 to numpy (``jax.tree.map(np.asarray, params)``); nothing here imports jax.
 """

@@ -14,6 +14,9 @@ _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "stablelm-12b": "stablelm_12b",
     "gemma2-27b": "gemma2_27b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b_a6_6b",
 }
 
 

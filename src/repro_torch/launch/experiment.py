@@ -55,7 +55,7 @@ from repro_torch.serving.api import SamplingParams
 
 GRID_FILE = "EXPERIMENT_torch_grid.jsonl"
 DRIFT_FILE = "EXPERIMENT_torch_drift.json"
-DECODER_ARCHS = ("qwen2-0.5b", "recurrentgemma-9b")
+DECODER_ARCHS = ("qwen2-0.5b", "recurrentgemma-9b", "qwen2-moe-a2.7b")
 
 
 def make_engine_factory(args):

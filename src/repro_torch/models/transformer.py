@@ -5,11 +5,13 @@ Port of ``repro/models/transformer.py`` for stacks of four blocks:
 ``attn_global`` (the same, named as gemma2's pattern names it),
 ``attn_local`` (causal sliding-window attention over a window-sized ring
 cache) and ``rglru`` (Griffin's recurrent block, ``models/rglru.py``),
-with QKV bias, the fused ``wqkv`` layout, rotary embeddings, a gated MLP,
-gemma2's post-norms and softcaps, and tied or untied embeddings (Qwen2,
-stablelm, gemma2, RecurrentGemma). Modes ``full`` (whole sequences,
-optionally filling caches), ``decode`` (one step against the caches),
-``chunk`` (a prefill chunk that continues the caches) and ``verify``.
+with QKV bias, the fused ``wqkv`` layout, rotary embeddings, a gated MLP
+or a Mixture-of-Experts block (``models/moe.py``: qwen2-moe, moonshot,
+phi3.5-moe), gemma2's post-norms and softcaps, and tied or untied
+embeddings (Qwen2, stablelm, gemma2, RecurrentGemma). Modes ``full``
+(whole sequences, optionally filling caches), ``decode`` (one step
+against the caches), ``chunk`` (a prefill chunk that continues the
+caches) and ``verify``.
 With ``long_ctx`` the global layers' caches and windows are capped at
 ``attn.long_ctx_window_cap`` (gemma2's windowed-global variant).
 Parameters and caches keep the JAX trees: one ``blocks/blk{j}`` per
@@ -29,6 +31,7 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import threefry
 from repro_torch.models.config import ModelConfig
@@ -44,12 +47,13 @@ BLOCK_KINDS = ("attn", "attn_global", "attn_local", "rglru")
 
 def _check_supported(cfg: ModelConfig):
     bad = sorted(set(cfg.pattern) - set(BLOCK_KINDS))
-    if bad or cfg.moe is not None or cfg.enc_layers or cfg.vis_tokens:
+    if bad or cfg.enc_layers or cfg.vis_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: only stacks of {BLOCK_KINDS} blocks without MoE, "
-            f"an encoder or a vision prefix are ported "
-            f"(pattern={cfg.pattern!r}); the other blocks are ROADMAP "
-            f"Queue 1 item 13")
+            f"{cfg.name}: only stacks of {BLOCK_KINDS} blocks (with dense "
+            f"or MoE feed-forwards) without an encoder or a vision prefix "
+            f"are ported (pattern={cfg.pattern!r}); the xLSTM blocks, "
+            f"whisper's encoder and the VLM's prefix are ROADMAP Queue 1 "
+            f"item 13")
 
 
 def _window(cfg, kind, long_ctx):
@@ -70,8 +74,11 @@ def _block_init(cfg, kind, gen, device):
                 "mlp": mlp_init(cfg, gen)}
     p = {"norm1": norm_init(cfg, device),
          "attn": attn_mod.attn_init(cfg, gen),
-         "norm2": norm_init(cfg, device),
-         "mlp": mlp_init(cfg, gen)}
+         "norm2": norm_init(cfg, device)}
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.moe_init(cfg, gen)
+    else:
+        p["mlp"] = mlp_init(cfg, gen)
     if cfg.post_norms:
         p["post_norm1"] = norm_init(cfg, device)
         p["post_norm2"] = norm_init(cfg, device)
@@ -162,14 +169,28 @@ def _post_norm(cfg, p, name, y, mode):
     return apply_norm(cfg, p[name], y)
 
 
+def _rglru_step_padded(cfg, p, x, B, state):
+    """The RG-LRU decode step on every row of x, the padding rows past
+    the state's B included (on zero states), so that its products run at
+    x's M whatever B is (RecurrentGemma-9B's (4096, 4096) products part
+    at 1-8 rows from 16 on the card); only the B rows' states are
+    written back."""
+    if x.shape[0] == B:
+        return rglru_mod.rglru_step(cfg, p, x, state)[0]
+    padded = {k: attn_mod.pad_rows(t, x.shape[0]) for k, t in state.items()}
+    delta, _ = rglru_mod.rglru_step(cfg, p, x, padded)
+    for k, t in state.items():
+        t.copy_(padded[k][:B])
+    return delta
+
+
 def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                  plain_attention, plain_matmul, rope, decode_width=None,
-                 partition=None, long_ctx=False):
+                 partition=None, long_ctx=False, aux=None):
     if kind == "rglru":
-        if mode == "decode":        # the state's rows: x's padding skipped
-            delta, _ = rglru_mod.rglru_step(
-                cfg, p["rglru"], x[:positions.shape[0]], cache)
-            delta = attn_mod.pad_rows(delta, x.shape[0])
+        if mode == "decode":
+            delta = _rglru_step_padded(cfg, p["rglru"], x,
+                                       positions.shape[0], cache)
         else:
             delta, _ = rglru_mod.rglru_apply(cfg, p["rglru"], x, cache,
                                              plain_scan=plain_attention)
@@ -207,7 +228,17 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                                    plain_matmul=plain_matmul, rope=rope)
     x = x + _post_norm(cfg, p, "post_norm1", a, mode)
     h = apply_norm(cfg, p["norm2"], x)
-    f = mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
+    if cfg.moe is not None:
+        # a prefill's or chunk's rows in groups of a fixed size: the expert
+        # products' M is C slots a row (see models/moe.py)
+        f, routed = moe_mod.moe_forward(cfg, p["moe"], h,
+                                        grouped=mode != "decode")
+        if aux is not None:      # a padded decode step's rows left out
+            n = positions.shape[0]
+            a = moe_mod.moe_aux(cfg, *(t[:n] for t in routed))
+            aux.append(torch.stack([a["load_balance_loss"], a["router_z"]]))
+    else:
+        f = mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
     return x + _post_norm(cfg, p, "post_norm2", f, mode)
 
 
@@ -216,7 +247,8 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
             return_hidden: bool = False, plain_attention: bool = False,
             plain_matmul: bool = False, head_w=None,
             decode_width: int | None = None, partition=None,
-            remat: bool = False, long_ctx: bool = False):
+            remat: bool = False, long_ctx: bool = False,
+            return_aux: bool = False):
     """Run the model. tokens: (B, S) int; positions: (B, S), default
     0..S-1.
 
@@ -245,17 +277,25 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     other kernels at 1-8 rows than at 16 for gemma2-27b's ``w_down`` and
     RecurrentGemma-9B's (4096, 4096) products (``chip_blas_rows.py``),
     and a row's bits would follow its width. The attention's ring and K2
-    (``attention.attn_decode``) and the recurrent states see the B rows
-    of ``positions``; the padding is cut from the result. Parameters may be
-    ``quantize_params``' tree: its int8 projections go through K3. With
-    ``cfg.embed_scale`` the embedding is scaled by sqrt(d_model), rounded
-    to the model dtype, as JAX does for the Gemma family. ``remat`` (with
-    grad enabled) runs each block under ``torch.utils.checkpoint``
-    (``use_reentrant=False``), as JAX's ``jax.checkpoint`` of its period
-    body: the backward recomputes the block's activations, K1 and K5
-    included, instead of keeping them. ``long_ctx`` caps each global
-    layer's window at ``attn.long_ctx_window_cap`` (the caches must be
-    ``make_caches(..., long_ctx=True)``'s), as JAX's ``long_ctx``."""
+    (``attention.attn_decode``) see the B rows of ``positions``, an
+    RG-LRU step runs every row on zero states past the B rows and writes
+    back the B rows' states; the padding is cut from the result.
+    Parameters may be ``quantize_params``' tree: its int8 projections go
+    through K3. With ``cfg.embed_scale`` the embedding is scaled by
+    sqrt(d_model), rounded to the model dtype, as JAX does for the Gemma
+    family. ``remat`` (with grad enabled) runs each block under
+    ``torch.utils.checkpoint`` (``use_reentrant=False``), as JAX's
+    ``jax.checkpoint`` of its period body: the backward recomputes the
+    block's activations, K1 and K5 included, instead of keeping them.
+    ``long_ctx`` caps each global layer's window at
+    ``attn.long_ctx_window_cap`` (the caches must be ``make_caches(...,
+    long_ctx=True)``'s), as JAX's ``long_ctx``.
+    A ``cfg.moe`` model runs ``models/moe.py``'s block in place of the
+    MLP; ``return_aux`` then returns (out, aux), aux the (2,) fp32 sum over
+    the stack of each block's (load-balance, router-z) terms, as JAX's
+    third return value (zeros without MoE). An MoE model has no verify
+    mode: JAX's verify routes the whole (B, k + 1) chunk at its capacity,
+    which a per-position verify cannot reproduce."""
     if mode not in ("full", "decode", "chunk", "verify"):
         raise ValueError(f"mode must be 'full', 'decode', 'chunk' or "
                          f"'verify', got {mode!r}")
@@ -263,6 +303,10 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
                                 for k in cfg.pattern):
         raise ValueError(f"mode='verify' needs a pure global-attention "
                          f"pattern (pattern={cfg.pattern!r})")
+    if mode == "verify" and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mode='verify' (speculative decoding) with an MoE "
+            f"block is ROADMAP Queue 1 item 13")
     if mode != "full" and (caches is None or positions is None):
         raise ValueError(f"mode={mode!r} needs caches and positions")
     _check_supported(cfg)
@@ -281,6 +325,7 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
         x = attn_mod.pad_rows(x, decode_width)
     rope = (None if cfg.attn.rope_base is None or mode == "verify" else
             rope_angles(positions, cfg.head_dim_, cfg.attn.rope_base))
+    aux = [] if return_aux else None
     for j, kind in enumerate(cfg.pattern):     # JAX's order: see the top
         blk = params["blocks"][f"blk{j}"]
         cache_blk = caches[f"blk{j}"] if caches is not None else None
@@ -291,7 +336,7 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
                       plain_attention=plain_attention,
                       plain_matmul=plain_matmul, rope=rope,
                       decode_width=decode_width, partition=partition,
-                      long_ctx=long_ctx)
+                      long_ctx=long_ctx, aux=aux)
             if remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
                     _apply_block, cfg, kind, _index_tree(blk, i), x,
@@ -303,7 +348,13 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
         return attn_mod.per_row(lambda t: _final(cfg, params, t,
                                                  return_hidden, head_w),
                                 x)[:B]
-    return _final(cfg, params, x, return_hidden, head_w)[:B]
+    out = _final(cfg, params, x, return_hidden, head_w)[:B]
+    if not return_aux:
+        return out
+    total = torch.zeros(2, dtype=torch.float32, device=out.device)
+    for a in aux:
+        total = total + a
+    return out, total
 
 
 def _final(cfg, params, x, return_hidden, head_w):

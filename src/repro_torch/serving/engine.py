@@ -177,8 +177,28 @@ def _tree_map(fn, tree):
 # of K2's fold, and runs its row-wise products at M = ``max_batch``
 # (``forward`` pads the hidden states with zero rows): at 1-8 rows the
 # libraries split gemma2's w_down and RecurrentGemma's (4096, 4096)
-# products otherwise.
+# products otherwise. Some products part above 128 rows too:
+# PARTING_PRODUCTS maps a product's (K, N) to the rows of M from which it
+# gives a row the same bits, and a model with such a product pads its
+# prefills to that M (``prefill_min_m``). RecurrentGemma-9B's wk/wv (K =
+# 4096, N = 256) gives a row one set of bits at 128-224 rows, another at
+# 256-352 and 416, and a third at 384 and at every M from 448 to 4096 in
+# steps of 32 (``chip_blas_rows.py --scan 4096 256``; chip_smoke phase 22
+# holds its rows across joins from 448 rows).
 PREFILL_MIN_M = 128
+PARTING_PRODUCTS = {(4096, 256): 448}
+
+
+def prefill_min_m(cfg) -> int:
+    """The rows of M a prefill of ``cfg`` is padded to at least: the most
+    that ``PARTING_PRODUCTS`` asks of a (K, N) of its layers' attention
+    and MLP products, and at least PREFILL_MIN_M."""
+    d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    products = ({(d, q + 2 * kv)} if cfg.fused_qkv else {(d, q), (d, kv)}) \
+        | {(q, d), (d, f), (d, 2 * f), (f, d)}
+    return max([PREFILL_MIN_M] + [PARTING_PRODUCTS.get(kn, 0)
+                                  for kn in products])
 
 
 def _pad_rows(n: int, *arrays):
@@ -244,6 +264,11 @@ def _check_config(ec: EngineConfig, cfg, draft_cfg=None,
                 f"sliding-window rings and recurrent states cannot be "
                 f"replayed at an absolute KV offset "
                 f"(pattern={cfg.pattern!r})")
+    if ec.spec_decode and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: spec_decode with an MoE block (JAX's verify "
+            f"routes the whole chunk at its capacity) is ROADMAP Queue 1 "
+            f"item 13")
     if ec.spec_decode:
         if ec.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {ec.spec_k}")
@@ -291,6 +316,7 @@ class ServingEngine:
                 f"and float recurrent leaves) is ROADMAP Queue 1 item 15")
         self.device = resolve_device(device)      # guarded-by: init
         self.cfg = cfg                    # guarded-by: init
+        self._min_m = prefill_min_m(cfg)  # guarded-by: init
         self.params = _tree_map(          # guarded-by: init
             lambda t: t.to(self.device), params)
         if engine_cfg.weight_quant == "int8":
@@ -831,7 +857,7 @@ class ServingEngine:
                         else None)
                 slots = (pool.claim([f"b{bucket}.{i}" for i in range(B)])
                          if pool is not None else [])
-                n = self._prefill_rows(B, bucket)
+                n = self._prefill_rows(B, bucket, self._min_m)
                 try:
                     gen = self._graphs.run(
                         ("dec_scan", bucket, B, any_sample),
@@ -848,7 +874,7 @@ class ServingEngine:
                 # padding rows decode on their own copies of the first
                 # row's cache, which nothing writes back
                 dev = self.device
-                n = self._prefill_rows(B, bucket)
+                n = self._prefill_rows(B, bucket, self._min_m)
                 caches, handle = self._acquire_caches(B, bucket, rows=n)
                 try:
                     gen = self._decode_batch(
@@ -863,10 +889,13 @@ class ServingEngine:
 
     # ----------------------------------------------- continuous programs
     @staticmethod
-    def _prefill_rows(n: int, width: int) -> int:
+    def _prefill_rows(n: int, width: int,
+                      min_m: int = PREFILL_MIN_M) -> int:
         """Rows a program of ``n`` prompts of ``width`` tokens each (a
-        bucket, or a chunk) runs (see ``PREFILL_MIN_M``)."""
-        return max(n, -(-PREFILL_MIN_M // width))
+        bucket, or a chunk) runs, at least ``min_m`` rows of M (see
+        ``PREFILL_MIN_M``; the engine passes its model's
+        ``prefill_min_m``)."""
+        return max(n, -(-min_m // width))
 
     def _prefill_fn(self, bucket: int, n: int):  # holds: worker
         """Continuous prefill-into-slot (JAX's ``_prefill_fn`` with the
@@ -903,8 +932,9 @@ class ServingEngine:
             first = self._graphs.run(
                 ("cont_prefill", bucket, n, temp is not None),
                 self._prefill_fn(bucket, n),
-                *_pad_rows(self._prefill_rows(n, bucket), toks, lens,
-                           np.asarray(slots, np.int64), temp, topk, seed))
+                *_pad_rows(self._prefill_rows(n, bucket, self._min_m), toks,
+                           lens, np.asarray(slots, np.int64), temp, topk,
+                           seed))
             return first.cpu().numpy()
 
     def _chunk_fn(self, src: CachePool, dst: CachePool,  # holds: worker
@@ -947,7 +977,7 @@ class ServingEngine:
         prefix store to the lane pool). Returns each row's candidate token
         (host)."""
         n, C = len(dst_slots), toks.shape[1]
-        rows = self._prefill_rows(n, C)
+        rows = self._prefill_rows(n, C, self._min_m)
         pad = rows - n
         with torch.inference_mode():
             tok = self._graphs.run(
@@ -1190,7 +1220,7 @@ class ServingEngine:
             return
         # padded as the captured prefills are (PREFILL_MIN_M), so a row's
         # bits do not follow its batch
-        n = self._prefill_rows(B, bucket)
+        n = self._prefill_rows(B, bucket, self._min_m)
         with torch.inference_mode():
             out = self._graphs.run(("enc", bucket, n), self._encoder_fn(),
                                    *_pad_rows(n, toks, mask))

@@ -87,6 +87,11 @@ def loss_fn(cfg, params, batch, *, remat=True, seq_shard=False,
         raise NotImplementedError(
             "seq_shard: the sequence-sharded step is mesh code, ROADMAP "
             "Queue 1 item 14")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training an MoE model (its load-balance and "
+            f"router-z terms, a backward through the dispatch) is ROADMAP "
+            f"Queue 1 item 13")
     for key in ("enc_embeds", "prefix_embeds"):
         if key in batch:
             raise NotImplementedError(
@@ -99,7 +104,7 @@ def loss_fn(cfg, params, batch, *, remat=True, seq_shard=False,
     valid = labels >= 0
     nll = chunked_ce(cfg, params, hidden, labels, valid)
     zero = torch.zeros((), dtype=torch.float32, device=nll.device)
-    lb, rz = zero, zero           # no MoE block is ported (item 13)
+    lb, rz = zero, zero           # MoE models are refused above
     total = nll + 0.01 * lb + 1e-3 * rz
     return total, {"nll": nll, "load_balance": lb, "router_z": rz}
 

@@ -171,7 +171,7 @@ def test_init_params_has_the_jax_layout():
 def test_unported_paths_raise(weights):
     _, tp = weights
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("qwen2-moe-a2.7b")
+        get_config("xlstm-125m")
     with pytest.raises(ValueError, match="needs caches and positions"):
         forward(CFG, tp["encoder"], tokens=torch.zeros(1, 4, dtype=torch.long),
                 mode="chunk")

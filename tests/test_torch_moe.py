@@ -1,0 +1,396 @@
+"""The MoE block and the MoE models in the port against the JAX package,
+on the CPU.
+
+The three MoE smoke configs (qwen2-moe, moonshot, phi3.5-moe; fp32,
+weights initialized in JAX and bridged through numpy) are held against
+JAX: the configs field for field with their parameter counts,
+``moe_apply``'s output and aux terms (1e-5, the batch at once and in
+groups padded with zero rows, and under a skewed router the same copies
+dropped at capacity), ``forward`` logits and the aux sum in modes full,
+decode and chunk (1e-4), the batch and continuous decoders' token
+streams, greedy
+and sampled, float and int8 weights and KV (the int8 tree bit-equal to
+JAX's), and the chunked continuous decoder with the prefix cache. A
+variant at 16/16 heads takes qwen2-moe's fused ``wqkv`` with its bias.
+Speculative decoding and training refuse an MoE model, naming ROADMAP
+item 13. JAX is imported in a fixture.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bridge import to_torch
+from repro_torch.configs import get_config
+from repro_torch.models import forward, init_params, make_caches
+from repro_torch.models import moe as moe_mod
+from repro_torch.quant import quantize_params
+from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving.api import SamplingParams
+from repro_torch.training.train_loop import loss_fn
+
+NAMES = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b")
+# qwen2-moe's smoke config at 16 query over 16 kv heads: the fused wqkv
+# (with its bias) that the full config takes
+FUSED = ("qwen2-moe-a2.7b", dict(n_heads=16, n_kv_heads=16))
+MODELS = [(n, {}) for n in NAMES] + [FUSED]
+MODEL_IDS = ["qwen2-moe", "moonshot", "phi35-moe", "qwen2-moe-fused"]
+BASE = dict(mode="decoder", max_batch=4, max_new_tokens=6,
+            pad_buckets=(32,), decode_segment=2)
+
+
+def _cfg(name, kw=None):
+    return dataclasses.replace(get_config(name, smoke=True), dtype="float32",
+                               **(kw or {}))
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.configs import get_config as jax_get_config
+    from repro.models import moe as jm
+    from repro.models import transformer as jt
+    from repro.quant import weights as jq
+    from repro.serving import EngineConfig as JaxEngineConfig
+    from repro.serving import ServingEngine as JaxServingEngine
+    from repro.serving.api import SamplingParams as JaxSamplingParams
+    return dict(jax=jax, jnp=jnp, jm=jm, jt=jt, jq=jq,
+                get_config=jax_get_config, Engine=JaxServingEngine,
+                EngineConfig=JaxEngineConfig, Sampling=JaxSamplingParams,
+                jit=dict(
+                    prefill=jax.jit(jt.prefill, static_argnums=0),
+                    decode_step=jax.jit(jt.decode_step, static_argnums=0),
+                    prefill_chunk=jax.jit(jt.prefill_chunk,
+                                          static_argnums=0),
+                    forward=jax.jit(lambda c, p, t: jt.forward(c, p,
+                                                               tokens=t),
+                                    static_argnums=0)),
+                models={})
+
+
+def _model(jx, name, kw=None):
+    """(jax cfg, jax params, port cfg, port params), made once a model."""
+    key = (name, tuple(sorted((kw or {}).items())))
+    if key not in jx["models"]:
+        jcfg = dataclasses.replace(jx["get_config"](name, smoke=True),
+                                   dtype="float32", **(kw or {}))
+        jp = jx["jax"].jit(jx["jt"].init_params, static_argnums=0)(
+            jcfg, jx["jax"].random.PRNGKey(0))
+        tp = to_torch(jx["jax"].tree.map(np.asarray, jp), device="cpu")
+        jx["models"][key] = (jcfg, jp, _cfg(name, kw), tp)
+    return jx["models"][key]
+
+
+def _close(got, want, tol, what=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=tol,
+                               atol=tol * max(np.abs(want).max(), 1.0),
+                               err_msg=what)
+
+
+def _tokens(cfg, B, S, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+
+
+# --------------------------------------------------------------- configs
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("name", NAMES)
+def test_config_equals_jax(jx, name, smoke):
+    """Every field JAX's config has, the MoE config's included, equal;
+    the parameter counts, total and active, equal JAX's."""
+    port = get_config(name, smoke=smoke)
+    want = jx["get_config"](name, smoke=smoke)
+    d = dataclasses.asdict(port)
+    assert d.pop("embed_scale") is False
+    assert d == dataclasses.asdict(want)
+    assert port.param_count() == want.param_count()
+    assert port.active_param_count() == want.active_param_count()
+    assert port.fused_qkv == want.fused_qkv
+
+
+def test_init_params_layout_matches_jax(jx):
+    """``init_params`` draws JAX's tree: the same keys, shapes and dtypes
+    (the router fp32), ``moe`` in place of ``mlp``."""
+    jax = jx["jax"]
+    name, kw = FUSED
+    cfg = _cfg(name, kw)
+    jcfg = dataclasses.replace(jx["get_config"](name, smoke=True),
+                               dtype="float32", **kw)
+    tp = init_params(cfg, 0, device="cpu")
+
+    def layout(tree):
+        if isinstance(tree, dict):
+            return {k: layout(v) for k, v in tree.items()}
+        return tuple(tree.shape), str(tree.dtype).split(".")[-1]
+    want = layout(jax.eval_shape(lambda k: jx["jt"].init_params(jcfg, k),
+                                 jax.random.PRNGKey(0)))
+    assert layout(tp) == want
+    blk = tp["blocks"]["blk0"]
+    assert "mlp" not in blk and blk["moe"]["router"].dtype == torch.float32
+    assert set(blk["attn"]) == {"wqkv", "bqkv", "wo"}
+
+
+# --------------------------------------------------------------- the block
+def _first(tree):
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
+    return tree[0]
+
+
+def _block(jx, name):
+    """(jax cfg, jax params, port cfg, port params) of layer 0's block."""
+    jcfg, jp, cfg, tp = _model(jx, name)
+    return (jcfg, jx["jax"].tree.map(lambda a: a[0],
+                                     jp["blocks"]["blk0"]["moe"]),
+            cfg, _first(tp["blocks"]["blk0"]["moe"]))
+
+
+@pytest.mark.parametrize("rows", [None, 16, 2],
+                         ids=["batch", "grouped", "grouped-2"])
+@pytest.mark.parametrize("name", NAMES)
+def test_moe_apply_matches_jax(jx, name, rows, monkeypatch):
+    """Out, load-balance and router-z within 1e-5 of JAX's on 3 rows of
+    24 tokens: the batch at once, in one group of the default
+    ``GROUP_ROWS`` (16, padded with zero rows), and in groups of 2 rows
+    (the second padded)."""
+    jcfg, jp, cfg, tp = _block(jx, name)
+    x = np.random.default_rng(5).standard_normal(
+        (3, 24, cfg.d_model)).astype(np.float32)
+    want, jaux = jx["jax"].jit(jx["jm"].moe_apply, static_argnums=0)(
+        jcfg, jp, jx["jnp"].asarray(x))
+    if rows is not None:
+        monkeypatch.setattr(moe_mod, "GROUP_ROWS", rows)
+    got, aux = moe_mod.moe_apply(cfg, tp, torch.from_numpy(x),
+                                 grouped=rows is not None)
+    _close(got.numpy(), want, 1e-5)
+    for k in ("load_balance_loss", "router_z"):
+        _close(aux[k].numpy(), jaux[k], 1e-5, k)
+
+
+def _kept_reference(ids, C):
+    """Numpy: copy j of a row (token j // K, its k-th choice) is kept iff
+    fewer than C earlier copies of the row chose its expert."""
+    B, S, K = ids.shape
+    flat = ids.reshape(B, S * K)
+    kept = np.zeros_like(flat, dtype=bool)
+    for b in range(B):
+        seen = {}
+        for j, e in enumerate(flat[b]):
+            kept[b, j] = seen.get(e, 0) < C
+            seen[e] = seen.get(e, 0) + 1
+    return kept
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_skewed_router_drops_the_same_copies(jx, name):
+    """A router pulled towards expert 0 overfills it: the port drops the
+    copies JAX's top-k and capacity drop (a numpy reference on JAX's
+    expert ids), and its output still matches JAX's within 1e-5."""
+    jnp = jx["jnp"]
+    jcfg, jp, cfg, tp = _block(jx, name)
+    jp = dict(jp, router=jp["router"].at[:, 0].add(0.02))
+    tp = dict(tp, router=tp["router"].clone())
+    tp["router"][:, 0] += 0.02
+    x = np.abs(np.random.default_rng(6).standard_normal(
+        (2, 32, cfg.d_model))).astype(np.float32)
+    want, _ = jx["jax"].jit(jx["jm"].moe_apply, static_argnums=0)(
+        jcfg, jp, jnp.asarray(x))
+    got, _ = moe_mod.moe_apply(cfg, tp, torch.from_numpy(x), grouped=True)
+    _close(got.numpy(), want, 1e-5)
+    logits = jnp.einsum("bsd,de->bse", jnp.asarray(x), jp["router"])
+    _, jids = jx["jax"].lax.top_k(jx["jax"].nn.softmax(logits, -1),
+                                  cfg.moe.top_k)
+    C = moe_mod.capacity(cfg, 32)
+    _, _, ids, _ = moe_mod.route(cfg, tp, torch.from_numpy(x))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    _, _, _, kept = moe_mod.dispatch(cfg, ids, C)
+    want_kept = _kept_reference(np.asarray(jids), C)
+    np.testing.assert_array_equal(kept.numpy(), want_kept)
+    assert 0 < (~want_kept).sum() < want_kept.size / 2
+
+
+def test_tied_zero_rows_route_as_jax(jx):
+    """All-zero rows (a padded decode step's) tie every expert exactly:
+    the lower ids win, as ``jax.lax.top_k`` picks, and nothing faults."""
+    _, _, cfg, tp = _block(jx, "qwen2-moe-a2.7b")
+    x = torch.zeros(2, 1, cfg.d_model)
+    _, _, ids, gate = moe_mod.route(cfg, tp, x)
+    assert ids.tolist() == [[list(range(cfg.moe.top_k))]] * 2
+    out, _ = moe_mod.moe_apply(cfg, tp, x)
+    assert torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------- model
+@pytest.mark.parametrize("name,kw", MODELS, ids=MODEL_IDS)
+def test_forward_logits_and_aux_match_jax(jx, name, kw):
+    """Full mode: logits within 1e-4 of JAX's and the stack's aux sum
+    within 1e-5."""
+    jcfg, jp, cfg, tp = _model(jx, name, kw)
+    toks = _tokens(cfg, 2, 24, 1)
+    want, _, jaux = jx["jit"]["forward"](jcfg, jp, jx["jnp"].asarray(toks))
+    got, aux = forward(cfg, tp, tokens=torch.from_numpy(toks),
+                       return_aux=True)
+    _close(got.numpy(), want, 1e-4)
+    _close(aux.numpy(), jaux, 1e-5, "aux")
+    assert forward(cfg, tp, tokens=torch.from_numpy(toks)).shape == got.shape
+
+
+@pytest.mark.parametrize("name,kw", MODELS, ids=MODEL_IDS)
+def test_prefill_decode_and_chunk_match_jax(jx, name, kw):
+    """A prefill of 12 tokens, then 4 greedy decode steps at a padded
+    ``decode_width`` of 5 (logits within 1e-4, the aux sum of the real
+    rows within 1e-5, tokens exactly); then, from fresh caches, the same
+    prompt in chunks of 4 (every chunk's logits within 1e-4)."""
+    jnp, jit = jx["jnp"], jx["jit"]
+    jcfg, jp, cfg, tp = _model(jx, name, kw)
+    B, S, L = 2, 12, 24
+    toks = _tokens(cfg, B, S, 2)
+    jc = jx["jt"].make_caches(jcfg, B, L, dtype=jnp.float32)
+    tc = make_caches(cfg, B, L, dtype=torch.float32, device="cpu")
+    want, jc, _ = jit["prefill"](jcfg, jp, jnp.asarray(toks), jc)
+    got = forward(cfg, tp, tokens=torch.from_numpy(toks), caches=tc)
+    _close(got.numpy(), want, 1e-4, "prefill")
+    tok = np.asarray(want[:, -1]).argmax(-1)[:, None].astype(np.int32)
+    for t in range(4):
+        pos = np.full((B, 1), S + t, np.int32)
+        want, jc, jaux = jit["decode_step"](jcfg, jp, jnp.asarray(tok),
+                                            jnp.asarray(pos), jc)
+        got, aux = forward(cfg, tp, tokens=torch.from_numpy(tok),
+                           positions=torch.from_numpy(pos), caches=tc,
+                           mode="decode", decode_width=5, return_aux=True)
+        _close(got.numpy(), want, 1e-4, f"step {t}")
+        _close(aux.numpy(), jaux, 1e-5, f"aux, step {t}")
+        tok = np.asarray(want[:, -1]).argmax(-1)[:, None].astype(np.int32)
+        np.testing.assert_array_equal(
+            got[:, -1].argmax(-1)[:, None].numpy(), tok)
+    jc = jx["jt"].make_caches(jcfg, B, L, dtype=jnp.float32)
+    tc = make_caches(cfg, B, L, dtype=torch.float32, device="cpu")
+    for s0 in range(0, S, 4):
+        pos = np.broadcast_to(s0 + np.arange(4, dtype=np.int32), (B, 4))
+        chunk = toks[:, s0:s0 + 4]
+        want, jc, jaux = jit["prefill_chunk"](
+            jcfg, jp, jnp.asarray(chunk), jnp.asarray(pos), jc)
+        got, aux = forward(cfg, tp, tokens=torch.from_numpy(chunk),
+                           positions=torch.from_numpy(pos.copy()),
+                           caches=tc, mode="chunk", return_aux=True)
+        _close(got.numpy(), want, 1e-4, f"chunk at {s0}")
+        _close(aux.numpy(), jaux, 1e-5, f"aux, chunk at {s0}")
+
+
+def test_int8_tree_equals_jax(jx):
+    """``quantize_params`` of the bridged tree equals JAX's bit for bit:
+    the attention's leaves int8, ``moe/*`` (router, experts, shared)
+    passed through in float."""
+    jcfg, jp, cfg, tp = _model(jx, *FUSED)
+    want = to_torch(jx["jax"].tree.map(np.asarray,
+                                       jx["jq"].quantize_params(jp)),
+                    device="cpu")
+    got = quantize_params(tp)
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            else:
+                out[f"{prefix}{k}"] = v
+        return out
+    got, want = flat(got), flat(want)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
+    moe = [k for k in got if "/moe/" in k]
+    assert moe and all(got[k].dtype != torch.int8 for k in moe)
+    assert got["blocks/blk0/attn/wqkv/qw"].dtype == torch.int8
+
+
+# --------------------------------------------------------------- engines
+def _prompts(cfg, n, lo, hi, seed, sys_tokens=0):
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, cfg.vocab_size, (sys_tokens,))
+    return [np.concatenate([sysp, rng.integers(
+        0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))])
+        for _ in range(n)]
+
+
+def _sampling(i):
+    return dict(temperature=0.8, top_k=20, seed=7 + i) if i % 2 else {}
+
+
+def _serve(eng, prompts, sampling, one_by_one=False):
+    try:
+        eng.window()
+        if one_by_one:
+            out = [eng.generate(p, s).result(timeout=300)
+                   for p, s in zip(prompts, sampling)]
+        else:
+            handles = [eng.generate(p, s) for p, s in zip(prompts, sampling)]
+            out = [h.result(timeout=300) for h in handles]
+        return out, eng.window()
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("name,mkw,kw", [
+    ("qwen2-moe-a2.7b", {}, {}),
+    (*FUSED, dict(weight_quant="int8", kv_quant="int8")),
+    ("qwen2-moe-a2.7b", {}, dict(continuous=False)),
+    ("phi3.5-moe-42b-a6.6b", {}, dict(continuous=False, weight_quant="int8",
+                                      kv_quant="int8")),
+    ("moonshot-v1-16b-a3b", {}, dict(prefill_chunk=8, prefix_cache=True,
+                                     pad_buckets=(32,)))],
+    ids=["continuous", "continuous-int8-w-kv", "batch", "batch-int8-w-kv",
+         "chunked-prefix"])
+def test_engine_matches_jax(jx, name, mkw, kw):
+    """The continuous decoder and the batch decoder, greedy and sampled
+    requests of 3-30 tokens: tokens and finish reasons equal the JAX
+    engine's, float and int8 weights and KV (the int8 case on the 16/16-
+    head variant, whose fused ``wqkv`` and its bias go through int8).
+    Chunked with the prefix cache, prompts sharing a 16-token system
+    prompt are served one by one and the prefix counters equal JAX's
+    too."""
+    jcfg, jp, cfg, tp = _model(jx, name, mkw)
+    ec = dict(BASE, **kw)
+    prefix = kw.get("prefix_cache", False)
+    if prefix:
+        prompts = _prompts(cfg, 3, 2, 10, 5, sys_tokens=16)
+    else:
+        prompts = _prompts(cfg, 2, 3, 16, 6) + _prompts(cfg, 2, 17, 30, 7)
+    sp = [_sampling(i) for i in range(len(prompts))]
+    got, gw = _serve(ServingEngine(cfg, tp, EngineConfig(**ec),
+                                   device="cpu"),
+                     prompts, [SamplingParams(**s) for s in sp], prefix)
+    want, jw = _serve(jx["Engine"](jcfg, jp, jx["EngineConfig"](**ec)),
+                      prompts, [jx["Sampling"](**s) for s in sp], prefix)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+        assert g.finish_reason == w.finish_reason
+    if prefix:
+        keys = ("prefix_hits", "prefix_misses", "prefix_inserts",
+                "prefill_chunks")
+        lane, jlane = gw["lanes"][32], jw["lanes"][32]
+        assert {k: lane[k] for k in keys} == {k: jlane[k] for k in keys}
+        assert lane["prefix_hits"] >= len(prompts) - 2
+
+
+# -------------------------------------------------------------- refusals
+def test_verify_spec_decode_and_training_refuse_moe():
+    """What this slice leaves to later work raises, naming item 13:
+    ``forward(mode="verify")`` (and so ``verify_chunk``/``spec_round``),
+    an engine with ``spec_decode`` and ``loss_fn``."""
+    cfg = _cfg("qwen2-moe-a2.7b")
+    tp = init_params(cfg, 0, device="cpu")
+    caches = make_caches(cfg, 1, 16, dtype=torch.float32, device="cpu")
+    toks = torch.zeros(1, 3, dtype=torch.long)
+    pos = torch.arange(3)[None]
+    with pytest.raises(NotImplementedError, match="item 13"):
+        forward(cfg, tp, tokens=toks, positions=pos, caches=caches,
+                mode="verify")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ServingEngine(cfg, tp, EngineConfig(**BASE, spec_decode=True),
+                      device="cpu", draft=(cfg, tp))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        loss_fn(cfg, tp, {"tokens": torch.zeros(1, 9, dtype=torch.long)})
