@@ -4110,6 +4110,64 @@ def phase_k5_bwd_parity(rs):
     return main_err, checked
 
 
+def k1_bwd_timing(fa, attn_block_sizes, gen, label, B, S, Hq, Hkv, D,
+                  causal, window, name):
+    """K1's backward at one shape by ``graph_ms`` beside its plain version,
+    SDPA's backward and its bound (see ``phase_bwd_timings``). Returns
+    ((ms, plain ms, library ms, bound ms, bound by), {cluster: ms})."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
+    k, v = (randn(gen, B, S, Hkv, D, dtype=torch.bfloat16)
+            for _ in range(2))
+    do = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
+    bq, bk = attn_block_sizes("prefill", S, bh=B * Hq, head_dim=D,
+                              dtype=torch.bfloat16)
+    kw = dict(causal=causal, window=window, bq=bq, bk=bk)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    cluster = fa.bwd_cluster(Hq, Hkv, torch.bfloat16)
+
+    def bwd():
+        return fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    t_k = graph_ms(bwd)
+    t_prof = device_ms(bwd, launches=K1_BWD_BF16_LAUNCHES)
+    t_ev = cuda_ms(bwd)
+    t_p = graph_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, do, lse, **kw), iters=3, replays=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ot = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
+    dot = do.transpose(1, 2)
+
+    def lib():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    t_s = graph_ms(lib, stream=side)
+    G = Hq // Hkv
+    by_c = {str(c): graph_ms(lambda c=c: fa.flash_attention_bwd(
+        q, k, v, out, do, lse, cluster=c, **kw))
+        for c in range(1, min(G, fa.BWD_MAX_CLUSTER) + 1)
+        if G % c == 0} if G > 1 else {}
+    bound, by = bwd_bound_ms(B, S, S, Hq, Hkv, D, 2, causal=causal)
+    was = (f"; the CUDA-core design's {K1_BWD_WAS_MS[label]} ms"
+           if label in K1_BWD_WAS_MS else "")
+    print(f"timing K1 bwd {label} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+          f"bf16 {'causal' if causal else 'non-causal'}"
+          f"{f' window {window}' if window else ''} bq={bq} bk={bk} "
+          f"cluster {cluster}, over a captured graph "
+          f"({K1_BWD_BF16_LAUNCHES} launches a call): kernel "
+          f"{t_k:.4f} ms ({t_k / t_s:.2f}x sdpa's backward{was}), "
+          f"plain {t_p:.4f} ms, sdpa backward {t_s:.4f} "
+          f"ms, bound {bound:.4f} ms ({by}); kernel by the profiler "
+          f"{fmt_ms(t_prof)}, by events over back-to-back calls "
+          f"{t_ev:.4f} ms; by cluster size "
+          f"{ {c: round(t, 4) for c, t in by_c.items()} } [{name}]",
+          flush=True)
+    return (t_k, t_p, t_s, bound, by), by_c
+
+
 def phase_bwd_timings(fa, rs, attn_block_sizes, name):
     """The backward kernels by ``graph_ms`` (one method for the kernel,
     its plain version and the library call, which cannot come back
@@ -4130,7 +4188,6 @@ def phase_bwd_timings(fa, rs, attn_block_sizes, name):
     {shape + " by cluster": {cluster: ms}}."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(43)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for label, B, S, Hq, Hkv, D, causal, window in (
             ("encoder", MAIN["B"], MAIN["S"], MAIN["H"], MAIN["H"],
@@ -4141,57 +4198,9 @@ def phase_bwd_timings(fa, rs, attn_block_sizes, name):
             ("hybrid train", HYBRID_TRAIN["B"], HYBRID_TRAIN["S"],
              HYBRID_MAIN["Hq"], HYBRID_MAIN["Hkv"], HYBRID_MAIN["D"], True,
              HYBRID_WINDOW)):
-        q = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
-        k, v = (randn(gen, B, S, Hkv, D, dtype=torch.bfloat16)
-                for _ in range(2))
-        do = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
-        bq, bk = attn_block_sizes("prefill", S, bh=B * Hq, head_dim=D,
-                                  dtype=torch.bfloat16)
-        kw = dict(causal=causal, window=window, bq=bq, bk=bk)
-        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-        cluster = fa.bwd_cluster(Hq, Hkv, torch.bfloat16)
-
-        def bwd():
-            return fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
-        t_k = graph_ms(bwd)
-        t_prof = device_ms(bwd, launches=K1_BWD_BF16_LAUNCHES)
-        t_ev = cuda_ms(bwd)
-        t_p = graph_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, out, do, lse, **kw), iters=3, replays=3, warmup=1)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            ot = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
-        dot = do.transpose(1, 2)
-
-        def lib():
-            return torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                       retain_graph=True)
-        t_s = graph_ms(lib, stream=side)
-        G = Hq // Hkv
-        by_c = {str(c): graph_ms(lambda c=c: fa.flash_attention_bwd(
-            q, k, v, out, do, lse, cluster=c, **kw))
-            for c in range(1, min(G, fa.BWD_MAX_CLUSTER) + 1)
-            if G % c == 0} if G > 1 else {}
-        bound, by = bwd_bound_ms(B, S, S, Hq, Hkv, D, 2, causal=causal)
-        was = (f"; the CUDA-core design's {K1_BWD_WAS_MS[label]} ms"
-               if label in K1_BWD_WAS_MS else "")
-        print(f"timing K1 bwd {label} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-              f"bf16 {'causal' if causal else 'non-causal'}"
-              f"{f' window {window}' if window else ''} bq={bq} bk={bk} "
-              f"cluster {cluster}, over a captured graph "
-              f"({K1_BWD_BF16_LAUNCHES} launches a call): kernel "
-              f"{t_k:.4f} ms ({t_k / t_s:.2f}x sdpa's backward{was}), "
-              f"plain {t_p:.4f} ms, sdpa backward {t_s:.4f} "
-              f"ms, bound {bound:.4f} ms ({by}); kernel by the profiler "
-              f"{fmt_ms(t_prof)}, by events over back-to-back calls "
-              f"{t_ev:.4f} ms; by cluster size "
-              f"{ {c: round(t, 4) for c, t in by_c.items()} } [{name}]",
-              flush=True)
-        rows[label] = (t_k, t_p, t_s, bound, by)
-        rows[f"{label} by cluster"] = by_c
+        rows[label], rows[f"{label} by cluster"] = k1_bwd_timing(
+            fa, attn_block_sizes, gen, label, B, S, Hq, Hkv, D, causal,
+            window, name)
     B, S, W = SCAN_MAIN
     a, b = scan_inputs(gen, B, S, W)
     h = rs.rglru_scan(a, b)
@@ -4280,6 +4289,75 @@ def check_step_counts(label, got, want):
         raise AssertionError(f"{label}: launches {named}, want {exp}")
 
 
+def train_step_reading(cfg, oc, params, opt, batch, walls, peak, label,
+                       t_phase, name):
+    """A train step's reading: its wall (the median of ``walls`` past the
+    first two), one profiled step's kernels and the device's idle share
+    of that step's own wall, K1's forward and backward kernels, and the
+    step's parts by CUDA events (forward + CE without grad, forward +
+    remat + backward, CE forward + backward, AdamW); ``peak`` printed
+    beside. Returns (median step ms, profiled step ms, its kernels' ms,
+    {part: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import forward
+    from repro_torch.training import train_step
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_loop import (chunked_ce, loss_fn,
+                                                 value_and_grad)
+    step_ms = float(np.median(walls[2:]))
+    with torch.no_grad():
+        t_fwd = cuda_ms(lambda: loss_fn(cfg, params, batch), iters=3,
+                        warmup=1)
+        hid = forward(cfg, params, tokens=batch["tokens"][:, :-1],
+                      return_hidden=True)
+    labels = batch["tokens"][:, 1:]
+    hid.requires_grad_()
+
+    def ce():
+        loss = chunked_ce(cfg, params, hid, labels, labels >= 0)
+        return torch.autograd.grad(loss, hid)
+    t_ce = cuda_ms(ce, iters=3, warmup=1)
+    del hid
+    t_vg = cuda_ms(lambda: value_and_grad(
+        lambda p: loss_fn(cfg, p, batch), params), iters=3, warmup=1)
+    (_, _), grads = value_and_grad(lambda p: loss_fn(cfg, p, batch), params)
+    t_opt = cuda_ms(lambda: adamw_update(oc, params, grads, opt), iters=3,
+                    warmup=1)
+    del grads
+    for _ in range(2):            # the profiler now and then sees no kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(cfg, oc, params, opt, batch)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        rows = kernel_rows(prof, 1)
+        if rows:
+            break
+    busy = sum(r[0] for r in rows) if rows else None
+    k1f = [r for r in rows if "flash_fwd" in r[2]]
+    k1b = [r for r in rows if "flash_bwd" in r[2]]
+    print(f"{label}: wall {step_ms:.1f} ms (median of steps 2-"
+          f"{len(walls) - 1}, no profiler); the profiled step: wall "
+          f"{prof_ms:.1f} ms (profiler on), kernels {fmt_ms(busy)}, device "
+          f"idle " + (
+              "not measured" if busy is None else
+              f"{max(0.0, 1 - busy / prof_ms):.1%}") +
+          f" of its own wall; K1 forward ({sum(r[1] for r in k1f)} "
+          f"launches) {sum(r[0] for r in k1f):.3f} ms, K1 backward "
+          f"({sum(r[1] for r in k1b)}) {sum(r[0] for r in k1b):.3f} ms; by "
+          f"events: forward + CE (no grad) {t_fwd:.1f} ms, forward + remat "
+          f"+ backward {t_vg:.1f} ms, CE forward + backward {t_ce:.1f} ms, "
+          f"AdamW {t_opt:.1f} ms; peak memory {peak:,} B; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{name}]", flush=True)
+    for ms, calls, key in sorted(rows, reverse=True)[:10]:
+        print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{calls:<4d} {key[:90]}")
+    return step_ms, prof_ms, busy, {"forward + CE": t_fwd,
+                                    "forward + remat + backward": t_vg,
+                                    "CE": t_ce, "AdamW": t_opt}
+
+
 def phase_train_qwen2(kernels, bwd, name):
     """Phase 28 (d): Qwen2-0.5B at full width in bf16 (random weights from
     seed 0) on SyntheticLM batches of B=8 x 512 tokens: the gradient gate
@@ -4293,11 +4371,8 @@ def phase_train_qwen2(kernels, bwd, name):
     from repro_torch.configs import get_config
     from repro_torch.training import OptConfig, adamw_init, train_step
     from repro_torch.training.data import DataConfig, SyntheticLM
-    from repro_torch.training.optimizer import adamw_update
-    from repro_torch.training.train_loop import (chunked_ce, loss_fn,
-                                                 value_and_grad)
+    from repro_torch.training.train_loop import loss_fn
     from repro_torch.training.tree import leaves
-    from repro_torch.models import forward
     t_phase = time.perf_counter()
     cfg = get_config("qwen2-0.5b")
     params = qwen2_params(cfg, 0)
@@ -4334,60 +4409,10 @@ def phase_train_qwen2(kernels, bwd, name):
             and all(bool(torch.isfinite(x).all()) for x in leaves(params))):
         raise AssertionError(f"Qwen2-0.5B training: loss did not fall or "
                              f"went non-finite: {losses}")
-    step_ms = float(np.median(walls[2:]))
-    # a step's breakdown: events around its parts, and the profiler's
-    # kernels of one whole step
-    batch = batches[-1]
-    with torch.no_grad():
-        t_fwd = cuda_ms(lambda: loss_fn(cfg, params, batch), iters=3,
-                        warmup=1)
-        hid = forward(cfg, params, tokens=batch["tokens"][:, :-1],
-                      return_hidden=True)
-    labels = batch["tokens"][:, 1:]
-    hid.requires_grad_()
-
-    def ce():
-        loss = chunked_ce(cfg, params, hid, labels, labels >= 0)
-        return torch.autograd.grad(loss, hid)
-    t_ce = cuda_ms(ce, iters=3, warmup=1)
-    del hid
-    t_vg = cuda_ms(lambda: value_and_grad(
-        lambda p: loss_fn(cfg, p, batch), params), iters=3, warmup=1)
-    (_, _), grads = value_and_grad(lambda p: loss_fn(cfg, p, batch), params)
-    t_opt = cuda_ms(lambda: adamw_update(oc, params, grads, opt), iters=3,
-                    warmup=1)
-    del grads
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):            # the profiler now and then sees no kernel
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            train_step(cfg, oc, params, opt, batch)
-            torch.cuda.synchronize()
-            prof_ms = (time.perf_counter() - t0) * 1e3
-        rows = kernel_rows(prof, 1)
-        if rows:
-            break
-    busy = sum(r[0] for r in rows) if rows else None
-    k1f = sum(r[0] for r in rows if "flash_fwd" in r[2])
-    k1b = sum(r[0] for r in rows if "flash_bwd" in r[2])
-    print(f"Qwen2-0.5B train step B={B} S={S} bf16 remat: wall {step_ms:.1f}"
-          f" ms (median of steps 2-{TRAIN_STEPS - 1}, no profiler); the "
-          f"profiled step: wall {prof_ms:.1f} ms (profiler on), kernels "
-          f"{fmt_ms(busy)}, device idle " + (
-              "not measured" if busy is None else
-              f"{max(0.0, 1 - busy / prof_ms):.1%}") +
-          f" of its own wall; K1 forward (48 launches) {k1f:.3f} ms, K1 "
-          f"backward (24) "
-          f"{k1b:.3f} ms; by events: forward + CE (no grad) {t_fwd:.1f} ms,"
-          f" forward + remat + backward {t_vg:.1f} ms, CE forward + "
-          f"backward {t_ce:.1f} ms, AdamW {t_opt:.1f} ms; peak memory "
-          f"{peak:,} B; phase {time.perf_counter() - t_phase:.1f} s "
-          f"[{name}]", flush=True)
-    for ms, calls, key in sorted(rows, reverse=True)[:10]:
-        print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{calls:<4d} {key[:90]}")
-    return cfg, params, tuple(total), (step_ms, prof_ms, busy)
+    reading = train_step_reading(
+        cfg, oc, params, opt, batches[-1], walls, peak,
+        f"Qwen2-0.5B train step B={B} S={S} bf16 remat", t_phase, name)
+    return cfg, params, tuple(total), reading
 
 
 def phase_train_gector(kernels, bwd, name):
@@ -4787,13 +4812,14 @@ def big_load(cfg, seed, n_short, long_lens, lo=8, hi=120):
     return [load[i] for i in rng.permutation(len(load))]
 
 
-def serve_twice(cfg, params, kernels, ec, load, label, name):
+def serve_twice(cfg, params, kernels, ec, load, label, name, streams=None):
     """A continuous engine (``ec``) serves ``load`` twice, all requests at
     once: the first pass captures each program at its first call (which
     runs uncaptured), the second replays them. Every request's tokens of
     the two passes must be equal, and the second pass's K1/K2 (and, with
     int8 weights, K3) launches must match its whole-prompt joins and
-    decode steps. Returns the second pass's K1..K5 launches."""
+    decode steps. Returns the second pass's K1..K5 launches; the second
+    pass's token streams are appended to ``streams`` where given."""
     from repro_torch.serving import EngineConfig, ServingEngine
     eng = ServingEngine(cfg, params, EngineConfig(**ec), device="cuda")
     try:
@@ -4816,6 +4842,8 @@ def serve_twice(cfg, params, kernels, ec, load, label, name):
     torch.cuda.empty_cache()
     same = sum(np.array_equal(a.tokens, b.tokens)
                for a, b in zip(first, second))
+    if streams is not None:
+        streams.extend(np.asarray(r.tokens) for r in second)
     n_tok = sum(len(r.tokens) for r in second)
     steps = ecfg.decode_segment * win["decode_segments"]
     L = cfg.n_layers
@@ -5080,10 +5108,10 @@ def hidden_fp32_by_layer(cfg, params, tokens):
     for j, kind in enumerate(c32.pattern):
         blk = params["blocks"][f"blk{j}"]
         for i in range(c32.n_periods):
-            x = tm._apply_block(c32, kind, to_fp32(tm._index_tree(blk, i)),
-                                x, positions, None, mode="full", causal=True,
-                                plain_attention=True, plain_matmul=False,
-                                rope=rope)
+            x, _ = tm._apply_block(
+                c32, kind, to_fp32(tm._index_tree(blk, i)), x, positions,
+                None, mode="full", causal=True, plain_attention=True,
+                plain_matmul=False, rope=rope)
     return apply_norm(c32, to_fp32(params["final_norm"]), x)
 
 
@@ -5703,6 +5731,465 @@ def phase_moe_cut(fa, da, name):
     return out
 
 
+# ---------------------------- 32 (f). qwen2-moe's speculative decoding
+MOE_SPEC_K = (3, 4)     # S = 4 <= C = 4 drops no copy; S = 5 may
+MOE_SPEC_BUCKET = 128   # 32 (f)'s model-level rings: 128 + BIG_NEW slots
+
+
+def moe_k2s_row(da, name):
+    """32 (f). K2 with S = spec_k + 1 queries a row at qwen2-moe's verify
+    shape (G = 1: 16/16 heads of 128, bf16 q, an fp32 ring of bucket
+    512's spec engine, 512 + BIG_NEW + spec_k slots, at the plain ring's
+    partition), for spec_k 3 and 4 at widths 1 and 16: against its plain
+    version within BF16_TOL and bit-equal to S single-query launches;
+    then timed at width 16 x 5 queries by ``graph_ms`` beside the plain
+    version (profiler), SDPA on the same mask (``graph_ms``) and the
+    bound. Returns (max error, settings checked, (ms, plain ms, sdpa ms,
+    bound ms, bound by))."""
+    from repro_torch.kernels import ops
+    m = QWEN2_MOE
+    H, D, bf16 = m["Hq"], m["D"], torch.bfloat16
+    rng = np.random.default_rng(3271)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3271)
+    plain_len = 512 + BIG_NEW
+    worst, checked = 0.0, 0
+    for k in MOE_SPEC_K:
+        L, S = plain_len + k, k + 1
+        n_split, per = ops.decode_partition(16, H, plain_len)
+        part = dict(n_split=n_split, per_split=per)
+        for B in (1, 16):
+            q = randn(gen, B, S, H, D, dtype=bf16)
+            kc, vc = (randn(gen, B, L, H, D, dtype=torch.float32)
+                      for _ in range(2))
+            q_pos, kv_pos = spec_ring(rng, B, S, L, plain_len)
+            qp, kvp = (torch.from_numpy(x).cuda() for x in (q_pos, kv_pos))
+            out = da.decode_attention(q, kc, vc, qp, kvp, **part)
+            ref, _ = da.decode_attention_plain(
+                q.float(), kc.to(bf16).float(), vc.to(bf16).float(), qp, kvp,
+                **part)
+            ones = torch.cat([da.decode_attention(
+                q[:, s:s + 1], kc, vc, qp[:, s], kvp, **part)
+                for s in range(S)], 1)
+            err = (out.float() - ref).abs().max().item()
+            worst = max(worst, err)
+            checked += 1
+            if not (torch.allclose(out.float(), ref, atol=BF16_TOL,
+                                   rtol=BF16_TOL) and torch.equal(out, ones)):
+                raise AssertionError(
+                    f"32 (f) K2-S qwen2-moe width {B} S {S}: max_abs_err "
+                    f"{err:.3e}, equal to single-query launches "
+                    f"{torch.equal(out, ones)}")
+    B, S = 16, MOE_SPEC_K[-1] + 1
+    L = plain_len + S - 1
+    n_split, per = ops.decode_partition(16, H, plain_len)
+    q = randn(gen, B, S, H, D, dtype=bf16)
+    kc, vc = (randn(gen, B, L, H, D, dtype=torch.float32) for _ in range(2))
+    q_pos, kv_pos = spec_ring(rng, B, S, L, plain_len)
+    q_pos[:] = (plain_len - S - 1) + np.arange(S)         # every row full
+    kv_pos[:, :plain_len] = np.arange(plain_len)
+    qp, kvp = (torch.from_numpy(x).cuda() for x in (q_pos, kv_pos))
+
+    def k2s():
+        return da.decode_attention(q, kc, vc, qp, kvp, n_split=n_split,
+                                   per_split=per)
+    t_k = graph_ms(k2s)
+    t_p = device_ms(lambda: da.decode_attention_plain(
+        q, kc, vc, qp, kvp, n_split=n_split, per_split=per), iters=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)
+    kt, vt = (x.to(bf16).transpose(1, 2) for x in (kc, vc))
+    mask = ((kvp[:, None, :] >= 0)
+            & (kvp[:, None, :] <= qp[:, :, None]))[:, None]
+    t_s = graph_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    bound, by = verify_bound_ms(q_pos, kv_pos, H, H, D, 2, 4)
+    print(f"32 (f) K2-S at qwen2-moe's verify shape (G=1, D={D}, bf16 q, "
+          f"fp32 ring of {plain_len} + spec_k slots, the plain ring's "
+          f"partition): spec_k {MOE_SPEC_K} x widths 1 and 16 within "
+          f"{BF16_TOL} of plain (worst {worst:.3e}), bit-equal to S "
+          f"single-query launches; timed B={B} S={S} L={L}, {n_split} "
+          f"splits of {per} tiles: kernel (graph) {t_k:.4f} ms, plain "
+          f"(device time) {fmt_ms(t_p)}, sdpa (graph) {t_s:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}) [{name}]", flush=True)
+    return worst, checked, (t_k, t_p, t_s, bound, by)
+
+
+def moe_spec_model(cfg, params, name):
+    """32 (f) at the model level: 16 prompts in bucket MOE_SPEC_BUCKET
+    fill a plain ring of bucket + BIG_NEW slots and a spec ring spec_k
+    slots longer (cut at each prompt, as the spec engine's install cuts
+    it); then at widths 1 and 16 and spec_k 3 and 4 one random chunk of
+    spec_k + 1 tokens a row runs as spec_k + 1 ``decode_step``s in the
+    plain ring and as one ``verify_chunk`` in the spec ring (K2 at the
+    plain ring's partition, both at ``decode_width`` 16). ``moe.dispatch``
+    is wrapped during verify to learn which rows dropped a copy in some
+    layer. At spec_k 3 (S = 4 <= C) no copy can drop and every row must
+    be bit-equal; at spec_k 4 every row that dropped none must be.
+    Returns {(width, spec_k): (rows, rows dropping, rows parted)}."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import (decode_step, forward, make_caches,
+                                    verify_chunk)
+    from repro_torch.models import moe as mm
+    from repro_torch.models.layers import head_weight
+    rng = np.random.default_rng(327)
+    W, bucket = 16, MOE_SPEC_BUCKET
+    Lp = bucket + BIG_NEW
+    part = ops.decode_partition(W, cfg.n_kv_heads, Lp)
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    _, toks, lens = prompt_batch(rng, W, 8, bucket - 8, bucket,
+                                 cfg.vocab_size)
+    out = {}
+    dispatch = mm.dispatch
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full = make_caches(cfg, W, Lp + max(MOE_SPEC_K), dtype=torch.float32,
+                           device="cuda")
+        forward(cfg, params, tokens=torch.from_numpy(toks).cuda(),
+                caches=full, return_hidden=True)
+        for width in (1, W):
+            for k in MOE_SPEC_K:
+                plain = {b: {k_: (t[:, :width, :Lp] if t.dim() > 2
+                                  else t[:, :width]).clone()
+                             for k_, t in blk.items()}
+                         for b, blk in full.items()}
+                spec = {b: {k_: (t[:, :width, :Lp + k] if t.dim() > 2
+                                 else t[:, :width]).clone()
+                            for k_, t in blk.items()}
+                        for b, blk in full.items()}
+                bnd = torch.from_numpy(lens[:width]).cuda()
+                for blk in spec.values():             # the install's cut
+                    blk["pos"][blk["pos"] >= bnd[None, :, None]] = -1
+                    blk["len"].copy_(torch.minimum(blk["len"], bnd[None, :]))
+                chunk = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (width, k + 1))).cuda()
+                pos = torch.from_numpy(lens[:width, None] + np.arange(
+                    k + 1, dtype=np.int32)).cuda()
+                want = torch.cat([decode_step(
+                    cfg, params, chunk[:, s:s + 1], pos[:, s:s + 1], plain,
+                    head_w=w, decode_width=W) for s in range(k + 1)], 1)
+                dropped = torch.zeros(width, dtype=torch.bool, device="cuda")
+
+                def counted(cfg_, ids, C):
+                    d = dispatch(cfg_, ids, C)
+                    dropped.logical_or_(~d[3][:width].all(1))
+                    return d
+                mm.dispatch = counted
+                try:
+                    got = verify_chunk(cfg, params, chunk, pos, spec,
+                                       head_w=w, partition=part,
+                                       decode_width=W)
+                finally:
+                    mm.dispatch = dispatch
+                same = (got == want).flatten(1).all(1)
+                drop = dropped.cpu().numpy()
+                parted = ~same.cpu().numpy()
+                out[(width, k)] = (width, int(drop.sum()), int(parted.sum()))
+                print(f"32 (f) verify vs {k + 1} decode steps, width {width}"
+                      f" spec_k {k} (C = {mm.capacity(cfg, k + 1)}): rows "
+                      f"dropping a copy in some layer {int(drop.sum())}, "
+                      f"rows parted {int(parted.sum())} (of them dropping "
+                      f"{int((parted & drop).sum())}), max difference "
+                      f"{(got - want).abs().max().item():.3e}", flush=True)
+                if (parted & ~drop).any() or (k + 1 <= mm.capacity(
+                        cfg, k + 1) and drop.any()):
+                    raise AssertionError(
+                        f"32 (f): at width {width} spec_k {k} "
+                        f"{int((parted & ~drop).sum())} rows that dropped "
+                        f"no copy part from decode steps")
+                del plain, spec
+        del full
+    print(f"32 (f) model level: verify bit-equal to decode steps on every "
+          f"row without a drop, {time.perf_counter() - t0:.1f} s [{name}]",
+          flush=True)
+    return out
+
+
+def moe_step_programs(cfg, params, widths):
+    """Captured decode-step programs (greedy, bucket MOE_SPEC_BUCKET) at
+    each of ``widths`` over prefilled caches: {width: reading}."""
+    from repro_torch.models import forward, make_caches
+    from repro_torch.models.layers import head_weight
+    from repro_torch.serving.graphs import GraphCache
+    rng = np.random.default_rng(328)
+    bucket, top = MOE_SPEC_BUCKET, max(widths)
+    _, toks, lens = prompt_batch(rng, top, 8, bucket - 8, bucket,
+                                 cfg.vocab_size)
+    tt, lt = (torch.from_numpy(x).cuda() for x in (toks, lens))
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    caches = make_caches(cfg, top, bucket + BIG_NEW, dtype=torch.float32,
+                         device="cuda")
+    gc = GraphCache("cuda")
+    out = {}
+    with torch.inference_mode():
+        forward(cfg, params, tokens=tt, caches=caches, return_hidden=True)
+        for width in widths:
+            view = slice_caches(caches, width)
+            args = (tt[:width, :1].to(torch.int32), lt[:width, None])
+
+            def prog(t, p, view=view):
+                return forward(cfg, params, tokens=t, positions=p,
+                               caches=view, mode="decode", head_w=w,
+                               decode_width=top)[:, 0]
+            out[width] = program_reading(
+                lambda: gc.run(("moe step", width), prog, *args), n_wall=5)
+    del caches, gc
+    return out
+
+
+def moe_spec_engine(cfg, params, kernels, load, plain, name, *, quant=None,
+                    spec_k, timed=False):
+    """32 (f). 32 (b)'s load at once through the continuous decoder with
+    ``spec_decode`` (``spec_k`` proposals a round, self-drafted: the
+    target's first layer), float or int8 weights and KV: one pass, each
+    program captured at its first call. K1/K2/K3 launches against the
+    window's joins and rounds (K2's S > 1 launches 24 a round); the
+    streams against ``plain`` (32 (b)'s of the same load): at spec_k 3
+    every stream equal, at spec_k 4 the partings printed. ``timed``: a
+    second pass (replays) for tokens/s, and a captured round (bucket
+    MOE_SPEC_BUCKET) at widths 1 and 16, wall, kernels and idle. Returns
+    (K1..K5 launches, K2's S > 1 launches, {width: reading},
+    (streams equal, accept rate, tokens/s))."""
+    from repro_torch.launch.experiment import self_draft
+    from repro_torch.serving import EngineConfig, ServingEngine
+    tag = f"qwen2-moe spec_k {spec_k}" + (" int8 W+KV" if quant else "")
+    dcfg, dparams = self_draft(cfg, params)
+    t_phase = time.perf_counter()
+    eng = ServingEngine(cfg, params, EngineConfig(
+        mode="decoder", max_batch=16, pad_buckets=BIG_BUCKETS,
+        max_new_tokens=BIG_NEW, weight_quant=quant, kv_quant=quant,
+        spec_decode=True, spec_k=spec_k), device="cuda",
+        draft=(dcfg, dparams))
+    readings, tps = {}, None
+    try:
+        eng.window()
+        reset_launches(kernels)
+        results, wall = serve_load(eng, load, 0.0)
+        launches = tuple(fn.launches for fn in kernels)
+        verify = kernels[1].verify_launches
+        win = eng.window()
+        captures = eng.metrics()["jit_compiles"]
+        if timed:
+            results2, wall2 = serve_load(eng, load, 0.0)
+            tps = sum(len(r.tokens) for r in results2) / wall2
+            if any(not np.array_equal(a.tokens, b.tokens)
+                   for a, b in zip(results, results2)):
+                raise AssertionError(f"{tag}: the replayed pass differs")
+            tok = np.full((16, 1), 7, np.int32)
+            pos = (40 + np.arange(16, dtype=np.int32))[:, None]
+            for wd in (1, 16):
+                readings[wd] = program_reading(
+                    lambda: eng._spec_round_call(
+                        MOE_SPEC_BUCKET, wd, tok[:wd], pos[:wd],
+                        list(range(wd))), n_wall=5)
+    finally:
+        eng.close()
+    del eng
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    rounds = win["decode_segments"]
+    lanes = win["lanes"].values()
+    prop = sum(l_["spec_proposed"] for l_ in lanes)
+    acc = sum(l_["spec_accepted"] for l_ in lanes)
+    n_tok = sum(len(r.tokens) for r in results)
+    streams = [np.asarray(r.tokens) for r in results]
+    same = [np.array_equal(a, b) for a, b in zip(streams, plain)]
+    L, Ld, joins = cfg.n_layers, dcfg.n_layers, win["prefill_batches"]
+    want = ((L + Ld) * joins, verify + Ld * (spec_k + 1) * rounds,
+            k3_per_layer(cfg) * L * (joins + (spec_k + 1) * rounds)
+            if quant else 0, 0, 0)
+    print(f"{tag}: {len(load)} requests at once, first pass (captures "
+          f"{captures} programs as they come) {wall:.1f} s, {n_tok} tokens; "
+          f"rounds {rounds}, proposed {prop}, accepted {acc} (accept rate "
+          f"{acc / max(prop, 1):.4f}), {n_tok / max(rounds, 1):.2f} tokens a "
+          f"round over its rows; K1..K5 launches {launches} (joins and "
+          f"rounds give {want}), K2's S > 1 launches {verify}; against 32 (b)'s plain "
+          f"streams {sum(same)} of {len(same)} equal"
+          + (f"; second pass (replays) {tps:.1f} tokens/s" if timed else "")
+          + f"; {time.perf_counter() - t_phase:.1f} s [{name}]", flush=True)
+    for wd, r in readings.items():
+        print(f"{tag} round bucket {MOE_SPEC_BUCKET} width {wd} (captured):"
+              f" {fmt_reading(r)} [{name}]", flush=True)
+    if verify != L * rounds or launches != want:
+        raise AssertionError(f"{tag}: K2's S > 1 launches {verify} (want "
+                             f"{L} x {rounds}), K1..K5 {launches} != {want}")
+    if spec_k + 1 <= 4 and not all(same):
+        raise AssertionError(f"{tag}: {same.count(False)} streams differ "
+                             f"from plain decoding where no copy can drop")
+    return launches, verify, readings, (sum(same), acc / max(prop, 1), tps)
+
+
+def phase_moe_spec(da, cfg, params, kernels, load, plain, name):
+    """32 (f): K2-S at qwen2-moe's verify shape, the model-level gate
+    (``moe_spec_model``), then the spec engine on 32 (b)'s load: float
+    and int8 W+KV at spec_k 3 (streams equal to plain), float at spec_k 4
+    (timed, beside captured 4-step segments: 4 x a captured decode step
+    at widths 1 and 16). Returns (K2-S (err, checked, times), model
+    readings, {path: K1..K5 launches}, K2's S > 1 launches)."""
+    t0 = time.perf_counter()
+    k2s = moe_k2s_row(da, name)
+    model = moe_spec_model(cfg, params, name)
+    out, verify = {}, 0
+    for quant, k, timed in ((None, 3, False), ("int8", 3, False),
+                            (None, 4, True)):
+        label = f"qwen2-moe spec_k {k}" + (" int8 W+KV" if quant else "")
+        out[label], n, readings, _ = moe_spec_engine(
+            cfg, params, kernels, load, plain[quant], name, quant=quant,
+            spec_k=k, timed=timed)
+        verify += n
+    steps = moe_step_programs(cfg, params, (1, 16))
+    for wd, r in steps.items():
+        print(f"qwen2-moe captured decode step bucket {MOE_SPEC_BUCKET} "
+              f"width {wd}: {fmt_reading(r)}; 4 steps {4 * r[0]:.4f} ms wall "
+              f"against the spec_k 4 round's {readings[wd][0]:.4f} ms "
+              f"[{name}]", flush=True)
+    print(f"32 (f): {time.perf_counter() - t0:.1f} s", flush=True)
+    return k2s, model, out, verify
+
+
+# ------------------------------------------------- 33. MoE training
+MOE_TRAIN = dict(B=8, S=512, layers=2, steps=20)
+# the two MoE configs too large for AdamW on one card, trained a few steps
+# cut in depth: (arch, layers)
+MOE_TRAIN_CUT = (("moonshot-v1-16b-a3b", 2), ("phi3.5-moe-42b-a6.6b", 1))
+MOE_TRAIN_CUT_STEPS = 3
+
+
+def moe_train_steps(cfg, params, kernels, bwd, batches, label, oc, *,
+                    must_fall=True):
+    """``train_step`` over ``batches`` (remat on): each step's launches K1
+    2 x layers and K1's backward once a layer, nothing else; the loss
+    stays finite and (``must_fall``) falls. Returns (params, opt, losses,
+    walls, launches over the steps)."""
+    from repro_torch.training import adamw_init, train_step
+    from repro_torch.training.tree import leaves
+    opt = adamw_init(params)
+    losses, walls = [], []
+    total = [0] * len(TRAIN_COUNTERS)
+    for i, batch in enumerate(batches):
+        reset_launches(kernels + bwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = train_step(cfg, oc, params, opt, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = train_counts(kernels, bwd)
+        check_step_counts(f"{label} step {i}", counts,
+                          {"K1": 2 * cfg.n_layers, "K1 bwd": cfg.n_layers})
+        total = [a + b for a, b in zip(total, counts)]
+        if i % 5 == 0 or i == len(batches) - 1:
+            print(f"{label} step {i:3d} loss {losses[-1]:.4f} (nll "
+                  f"{float(m['nll']):.4f}, load balance "
+                  f"{float(m['load_balance']):.4f}, router z "
+                  f"{float(m['router_z']):.4f}) gnorm "
+                  f"{float(m['grad_norm']):.3f} wall {walls[-1]:.1f} ms",
+                  flush=True)
+    if not (all(np.isfinite(losses)) and (losses[-1] < losses[0]
+                                          or not must_fall)
+            and all(bool(torch.isfinite(x).all()) for x in leaves(params))):
+        raise AssertionError(f"{label}: the loss did not fall or went "
+                             f"non-finite: {losses}")
+    return params, opt, losses, walls, tuple(total)
+
+
+def phase_train_moe(fa, kernels, bwd, attn_block_sizes, name):
+    """33. MoE training on an emptied card. K1's backward at qwen2-moe's
+    training shape (B=8 S=512, 16/16 heads of 128, causal, bf16, cluster
+    1) against its plain version and timed beside SDPA's backward and its
+    bound. qwen2-moe-a2.7b at full width cut to MOE_TRAIN["layers"]
+    layers (random weights from seed 0, bf16) on SyntheticLM batches of
+    B=8 x 512: the gradient gate of phase 28 on the first batch (kernels
+    and plain attention against fp32); two backward calls bit-equal in
+    every leaf; MOE_TRAIN["steps"] ``train_step``s, the loss falls; the
+    step's wall, kernels, idle share, breakdown and peak memory. Then
+    moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b a few steps each, cut
+    to MOE_TRAIN_CUT's depths. Returns (K1 bwd (err, checked, times),
+    {path: TRAIN_COUNTERS launches}, the qwen2-moe step reading)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import OptConfig
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_loop import loss_fn, value_and_grad
+    from repro_torch.training.tree import flatten
+    t_phase = time.perf_counter()
+    mem0 = empty_card("33 (MoE training)")
+    m, B, S = QWEN2_MOE, MOE_TRAIN["B"], MOE_TRAIN["S"]
+    bq = attn_block_sizes("prefill", S, bh=B * m["Hq"], head_dim=m["D"],
+                          dtype=torch.bfloat16)[0]
+    k1b = phase_k1_bwd_parity(fa, [
+        ("qwen2-moe train", B, S, S, m["Hq"], m["Hkv"], m["D"], bq,
+         dict(causal=True, kv_len=S))], main="qwen2-moe train")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    k1b_times, _ = k1_bwd_timing(fa, attn_block_sizes, gen,
+                                 "qwen2-moe train", B, S, m["Hq"], m["Hkv"],
+                                 m["D"], True, None, name)
+    full = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN["layers"])
+    params = init_params(cfg, 0, device="cuda")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  batch_size=B, seed=0))
+    batches = [{"tokens": torch.as_tensor(b["tokens"], device="cuda")}
+               for b in data.batches(MOE_TRAIN["steps"])]
+    print(f"qwen2-moe-a2.7b training: cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers at full width ({cfg.param_count():,} "
+          f"parameters; the whole model's AdamW state needs about 12 B a "
+          f"parameter, {12 * full.param_count() / 1e9:.0f} GB), B={B} "
+          f"S={S} [{name}]", flush=True)
+    gradient_gate(cfg, params, lambda c, plain: (
+        lambda p: loss_fn(c, p, batches[0], plain_attention=plain)),
+        f"qwen2-moe-a2.7b ({cfg.n_layers} layers) B={B} S={S}")
+    grads = [value_and_grad(lambda p: loss_fn(cfg, p, batches[0]),
+                            params)[1] for _ in range(2)]
+    a, b = flatten(grads[0]), flatten(grads[1])
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    print(f"33: two backward calls on one batch: {len(a) - len(differ)} of "
+          f"{len(a)} leaves bit-equal (the routers' "
+          f"{sorted(k for k in a if k.endswith('/router'))})", flush=True)
+    if differ:
+        raise AssertionError(f"33: leaves whose gradients follow the call: "
+                             f"{differ}")
+    del grads, a, b
+    torch.cuda.empty_cache()
+    oc = OptConfig(lr=3e-4, warmup_steps=2, total_steps=MOE_TRAIN["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    label = f"qwen2-moe-a2.7b ({cfg.n_layers} layers) train"
+    params, opt, _, walls, total = moe_train_steps(
+        cfg, params, kernels, bwd, batches, label, oc)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    reading = train_step_reading(
+        cfg, oc, params, opt, batches[-1], walls, peak,
+        f"{label} step B={B} S={S} bf16 remat (peak over the phase's start)",
+        t_phase, name)
+    paths = {f"train qwen2-moe-a2.7b ({cfg.n_layers} layers, "
+             f"{MOE_TRAIN['steps']} steps)": total}
+    del params, opt, batches
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    for arch, layers in MOE_TRAIN_CUT:
+        c = dataclasses.replace(get_config(arch), n_layers=layers)
+        p = init_params(c, 0, device="cuda")
+        data = SyntheticLM(DataConfig(vocab_size=c.vocab_size, seq_len=S,
+                                      batch_size=B // 2, seed=1))
+        bt = [{"tokens": torch.as_tensor(x["tokens"], device="cuda")}
+              for x in data.batches(MOE_TRAIN_CUT_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        _, _, losses, _, n = moe_train_steps(
+            c, p, kernels, bwd, bt, f"{arch} ({layers} layers) train",
+            OptConfig(lr=3e-4, warmup_steps=1,
+                      total_steps=MOE_TRAIN_CUT_STEPS), must_fall=False)
+        print(f"{arch} ({layers} layers, {c.param_count():,} parameters) "
+              f"B={B // 2} S={S}: losses {[round(x, 4) for x in losses]}, "
+              f"peak {torch.cuda.max_memory_allocated():,} B [{name}]",
+              flush=True)
+        paths[f"train {arch} ({layers} layers, {MOE_TRAIN_CUT_STEPS} "
+              f"steps)"] = n
+        del p, bt
+        gc_mod.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 33: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return (*k1b, k1b_times), paths, reading
+
+
 def phase_moe(fa, da, kernels, attn_block_sizes, name):
     """32. qwen2-moe-a2.7b at full width and depth (24 layers, 16/16
     heads of 128 through the fused ``wqkv`` with its bias, 60 experts
@@ -5717,8 +6204,10 @@ def phase_moe(fa, da, kernels, attn_block_sizes, name):
     phase 22's at joins of 1, 4, 8 and 16 in buckets 128 and 512 and
     decode widths 1 and 16, a prefill run twice; (e) the weights' bytes,
     the peak memory and the captured decode step's breakdown; then (d)
-    the two MoE configs too large to serve whole, cut to two layers.
-    Returns (K1/K2 readings, timing rows, {path: K1..K5 launches})."""
+    the two MoE configs too large to serve whole, cut to two layers;
+    (f) speculative decoding on (b)'s load (``phase_moe_spec``) before
+    (d). Returns (K1/K2 readings, timing rows, {path: K1..K5 launches},
+    ``phase_moe_spec``'s readings)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.quant import params_bytes
@@ -5746,12 +6235,13 @@ def phase_moe(fa, da, kernels, attn_block_sizes, name):
                                                               16)])
     base = dict(mode="decoder", max_batch=16, pad_buckets=BIG_BUCKETS,
                 max_new_tokens=BIG_NEW)
-    out = {}
+    out, plain = {}, {None: [], "int8": []}
     for quant in (None, "int8"):
         label = "qwen2-moe-a2.7b" + (" int8 W+KV" if quant else "")
         out[label] = serve_twice(cfg, params, kernels,
                                  dict(base, weight_quant=quant,
-                                      kv_quant=quant), load, label, name)
+                                      kv_quant=quant), load, label, name,
+                                 streams=plain[quant])
     print(f"qwen2-moe-a2.7b: (b) {time.perf_counter() - t0:.1f} s",
           flush=True)
     big_program_gates(cfg, params, "qwen2-moe-a2.7b", name, width=16)
@@ -5765,6 +6255,8 @@ def phase_moe(fa, da, kernels, attn_block_sizes, name):
     print(f"qwen2-moe-a2.7b: weight bytes {nbytes:,} B; peak device memory "
           f"{peak:,} B over the phase's start; (a)-(c), (e) "
           f"{time.perf_counter() - t0:.1f} s [{name}]", flush=True)
+    spec = phase_moe_spec(da, cfg, params, kernels, load, plain, name)
+    out.update(spec[2])
     del params
     gc_mod.collect()
     torch.cuda.empty_cache()
@@ -5772,7 +6264,7 @@ def phase_moe(fa, da, kernels, attn_block_sizes, name):
     for arch, (n1, n2) in cut.items():
         out[f"{arch} ({MOE_CUT_LAYERS} layers)"] = (n1, n2, 0, 0, 0)
     print(f"phase 32: {time.perf_counter() - t0:.1f} s", flush=True)
-    return (k1, k2, depth), rows, out
+    return (k1, k2, depth), rows, out, spec
 
 
 def main() -> int:
@@ -6305,9 +6797,16 @@ def main() -> int:
 
     # ---- 32. qwen2-moe-a2.7b at 24 layers: float, int8 W+KV, a row's
     # bits; moonshot and phi3.5-moe cut to two layers
-    (k1m, k2m, _), moe_rows, moe = phase_moe(fa, da, kernels,
-                                             attn_block_sizes, name)
+    (k1m, k2m, _), moe_rows, moe, moe_spec = phase_moe(
+        fa, da, kernels, attn_block_sizes, name)
+    k2ms_err, k2ms_checked, k2ms_times = moe_spec[0]
     clock("phase 32")
+
+    # ---- 33. MoE training: qwen2-moe at two layers, K1's backward at its
+    # shape, moonshot and phi3.5-moe cut in depth
+    k1bm, train_moe, _ = phase_train_moe(fa, kernels, bwd, attn_block_sizes,
+                                         name)
+    clock("phase 33")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -6343,11 +6842,13 @@ def main() -> int:
                 **{path: n[i] for path, n in moe.items()}}
 
     def train_paths(i):
-        """Launches of counter i (TRAIN_COUNTERS) on phase 28's paths."""
+        """Launches of counter i (TRAIN_COUNTERS) on phases 28 and 33's
+        paths."""
         return {f"train Qwen2-0.5B ({TRAIN_STEPS} steps)": train_q[i],
                 f"train GECToR-base ({GECTOR_TRAIN['steps']} steps)":
                     train_g[i],
-                "train RecurrentGemma-9B (one triple, 1 step)": train_h[i]}
+                "train RecurrentGemma-9B (one triple, 1 step)": train_h[i],
+                **{path: n[i] for path, n in train_moe.items()}}
 
     def hybrid_row(times, err=None, checked_256=None):
         ms, plain_ms, lib_ms, bound_ms, bound_by = times
@@ -6425,7 +6926,13 @@ def main() -> int:
                        launches_by_path={"spec": spec_verify,
                                          "spec int8": spec8_verify,
                                          "lab spec pair (windows)":
-                                             lab_verify})}, {
+                                             lab_verify,
+                                         "qwen2-moe spec (32 (f))":
+                                             moe_spec[3]}),
+        "qwen2_moe_verify": dict(
+            hybrid_row(k2ms_times, k2ms_err, k2ms_checked),
+            shape="B=16 S=5 L=548 16/16 heads of 128 (G=1), bf16 q, fp32 "
+                  "ring")}, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:50",
@@ -6486,7 +6993,8 @@ def main() -> int:
         "replaces_note": "the TPU kernel has no backward: JAX "
                          "differentiates its jnp attention "
                          "(src/repro/models/attention.py:255)",
-        "launches": train_q[5] + train_g[5] + train_h[5],
+        "launches": train_q[5] + train_g[5] + train_h[5]
+        + sum(n[5] for n in train_moe.values()),
         "max_abs_err": k1b_err, "ms": k1b[0], "plain_ms": k1b[1],
         "bound_ms": k1b[3], "bound_by": k1b[4], "library_ms": k1b[2],
         "check": "ok", "settings_checked": k1b_checked,
@@ -6513,6 +7021,10 @@ def main() -> int:
                   "launches of CUDA-core FMAs",
         "registers": registers("flash_attention_bwd", bwd=True),
         "encoder": hybrid_row(bwd_rows["encoder"]),
+        "qwen2_moe_train": dict(
+            hybrid_row(k1bm[2], k1bm[0], k1bm[1]),
+            shape="B=8 S=512, 16/16 heads of 128 (G=1, cluster 1), causal, "
+                  "bf16 (qwen2-moe-a2.7b's training shape)"),
         "head_dim_256": dict(
             hybrid_row(bwd_rows["hybrid train"]),
             ms_by_cluster=bwd_rows["hybrid train by cluster"],

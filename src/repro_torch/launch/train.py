@@ -11,7 +11,11 @@ Runs on the card (K1 and K5 forward and backward); ``--device cpu
 seed 0. ``--ckpt`` writes ``{"params", "opt"}`` in the JAX package's
 checkpoint format, which ``repro_torch.launch.serve --ckpt`` serves. There
 is no mesh: the JAX launcher's production mesh and ``--multi-pod`` are
-ROADMAP Queue 1 item 14.
+ROADMAP Queue 1 item 14. The MoE archs train with their load-balance and
+router-z terms; at full size their weights and AdamW state (about 12 B
+a parameter: 172 GB for qwen2-moe-a2.7b's 14.3 B) need more than one
+card, which is that mesh work: on one card they train ``--smoke``, or
+cut in depth from code (``dataclasses.replace(cfg, n_layers=2)``).
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.optimizer import OptConfig, adamw_init
 from repro_torch.training.train_loop import train_step
 
-ARCHS = ("gector-base", "qwen2-0.5b", "recurrentgemma-9b")
+ARCHS = ("gector-base", "qwen2-0.5b", "recurrentgemma-9b",
+         "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b")
 
 
 def main(argv=None):

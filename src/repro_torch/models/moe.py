@@ -25,9 +25,18 @@ M. So a prefill or chunk (``grouped``, whose batch is a join of any
 size) runs the block on groups of GROUP_ROWS rows, the last one padded
 with zero rows: the products' M then follows the sequence length alone,
 never the join. A decode step runs the batch at once, at
-``decode_width`` rows whatever the width. The router's fp32 product
+``decode_width`` rows whatever the width, and a speculative verify
+chunk (``moe_verify``) at a decode step's M. The router's fp32 product
 runs with TF32 off, as JAX's fp32 einsum. The expert products are
 plain ``torch.bmm``: JAX computes them outside any Pallas kernel.
+
+In training the backward must give the same bits every call too. The
+backward of ``torch.gather`` scatter-adds with atomics on CUDA, so both
+gathers of the dispatch (into the expert buffer, and back out of it)
+are ``torch.autograd.Function``s whose backwards gather as well: a
+token sums its kept slots' gradients in ascending expert id, and a slot
+reads its one source copy's. The router's gradient flows through the
+gates and the aux terms, as in JAX.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import contextlib
 
 import torch
 
+from repro_torch.models.attention import per_row
 from repro_torch.models.layers import act_fn, dense_init
 
 
@@ -119,15 +129,63 @@ def dispatch(cfg, ids, C):
     return src, filled, slot, kept
 
 
-def gather(cfg, x, src, filled):
-    """The dispatch buffer (E, B*C, d): slot c of expert e in row b holds
-    the token of copy ``src`` (zeros where not ``filled``)."""
+class _RowGather(torch.autograd.Function):
+    """``_row_gather`` whose backward is a gather too: row i of t's
+    gradient is the sum, in fp32 and in the order listed, of the output
+    rows ``back[:, i]`` names where ``back_mask`` holds. ``torch.gather``'s
+    backward scatter-adds with atomics on CUDA, so a token's K gradients
+    would add in no fixed order; this gives the same bits every call."""
+
+    @staticmethod
+    def forward(ctx, t, idx, mask, back, back_mask):
+        ctx.save_for_backward(back, back_mask)
+        return _row_gather(t, idx, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        back, back_mask = ctx.saved_tensors
+        acc = _row_gather(g, back[..., 0], back_mask[..., 0]).float()
+        for r in range(1, back.shape[-1]):
+            acc = acc + _row_gather(g, back[..., r], back_mask[..., r])
+        return acc.to(g.dtype), None, None, None, None
+
+
+def _row_gather(t, idx, mask):
+    """t (B, N, d) -> (B, M, d): row i is t[b, idx[b, i]] where mask[b, i],
+    else zeros."""
+    B, M = idx.shape
+    got = torch.gather(t, 1, idx[..., None].expand(B, M, t.shape[-1]))
+    return torch.where(mask[..., None], got, 0)
+
+
+def _gather_rows(t, idx, mask, back):
+    """``_row_gather``; where grad flows to t, through ``_RowGather`` with
+    the inverse map ``back()`` gives: (rows (B, N, R), mask (B, N, R))."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _RowGather.apply(t, idx, mask, *back())
+    return _row_gather(t, idx, mask)
+
+
+def _copies_by_id(ids, slot, kept):
+    """Each token's K copies in ascending expert id: (slot (B, S, K), kept
+    (B, S, K)), the dispatch's inverse map."""
+    B, S, K = ids.shape
+    by_id = torch.argsort(ids, dim=-1)
+    return (torch.gather(slot.reshape(B, S, K), 2, by_id),
+            torch.gather(kept.reshape(B, S, K), 2, by_id))
+
+
+def gather(cfg, x, ids, disp):
+    """The dispatch buffer (E, B*C, d) of x (B, S, d) under ``disp`` =
+    ``dispatch(cfg, ids, C)``: slot c of expert e in row b holds the
+    token of copy ``src`` (zeros where not ``filled``). Its backward sums
+    a token's kept slots in ascending expert id."""
+    src, filled, slot, kept = disp
     B, E, C = src.shape
-    d = x.shape[-1]
-    tok = (src // cfg.moe.top_k).reshape(B, E * C, 1).expand(B, E * C, d)
-    buf = torch.where(filled.reshape(B, E * C, 1),
-                      torch.gather(x, 1, tok), 0)
-    return buf.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    tok = (src // cfg.moe.top_k).reshape(B, E * C)
+    buf = _gather_rows(x, tok, filled.reshape(B, E * C),
+                       lambda: _copies_by_id(ids, slot, kept))
+    return buf.reshape(B, E, C, -1).transpose(0, 1).reshape(E, B * C, -1)
 
 
 def experts(cfg, p, buf):
@@ -141,18 +199,22 @@ def experts(cfg, p, buf):
     return torch.bmm(h, p["w_down"])
 
 
-def combine(y, ids, gate, slot, kept, dtype):
-    """y (E, B*C, d) back to (B, S, d) in ``dtype``: each token's K kept
-    outputs times their gates, summed in fp32 in ascending expert id
-    (the order of JAX's sorted scatter-add)."""
+def combine(y, ids, gate, disp, dtype):
+    """y (E, B*C, d) back to (B, S, d) in ``dtype`` under ``disp``:
+    each token's K kept outputs times their gates, summed in fp32 in
+    ascending expert id (the order of JAX's sorted scatter-add). The
+    backward gives each slot the gradient of its one source copy."""
+    src, filled, slot, kept = disp
     B, S, K = ids.shape
-    E, d = y.shape[0], y.shape[-1]
-    y = y.reshape(E, B, -1, d).transpose(0, 1).reshape(B, -1, d)
-    got = torch.gather(y, 1, slot[..., None].expand(B, S * K, d))
+    E, D = y.shape[0], y.shape[-1]
+    y = y.reshape(E, B, -1, D).transpose(0, 1).reshape(B, -1, D)
+    got = _gather_rows(y, slot, kept,
+                       lambda: (src.reshape(B, -1, 1),
+                                filled.reshape(B, -1, 1)))
     w = torch.where(kept, gate.reshape(B, S * K), 0)
-    contrib = torch.where(kept[..., None], got.float() * w[..., None], 0)
-    by_id = torch.argsort(ids, dim=-1)[..., None].expand(B, S, K, d)
-    contrib = torch.gather(contrib.reshape(B, S, K, d), 2, by_id)
+    contrib = got.float() * w[..., None]
+    by_id = torch.argsort(ids, dim=-1)[..., None].expand(B, S, K, D)
+    contrib = torch.gather(contrib.reshape(B, S, K, D), 2, by_id)
     acc = contrib[:, :, 0]
     for k in range(1, K):
         acc = acc + contrib[:, :, k]
@@ -165,15 +227,23 @@ def shared(cfg, p, x):
     return h @ p["w_down"]
 
 
-def _block(cfg, p, x, C):
+def _block(cfg, p, x, C, *, rowwise=False):
     """The block on x (B, S, d) at once: (out (B, S, d) in x's type,
-    logits, probs, ids)."""
-    logits, probs, ids, gate = route(cfg, p, x)
-    src, filled, slot, kept = dispatch(cfg, ids, C)
-    y = experts(cfg, p["experts"], gather(cfg, x, src, filled))
-    out = combine(y, ids, gate, slot, kept, x.dtype)
+    logits, probs, ids). ``rowwise`` runs the router and the shared
+    experts on each position alone (``attention.per_row``)."""
+    if rowwise:
+        logits, probs, ids, gate = (torch.cat(t, 1) for t in zip(*(
+            route(cfg, p, x[:, s:s + 1].contiguous())
+            for s in range(x.shape[1]))))
+    else:
+        logits, probs, ids, gate = route(cfg, p, x)
+    disp = dispatch(cfg, ids, C)
+    y = experts(cfg, p["experts"], gather(cfg, x, ids, disp))
+    out = combine(y, ids, gate, disp, x.dtype)
     if cfg.moe.num_shared_experts:
-        out = out + shared(cfg, p["shared"], x)
+        sh = p["shared"]
+        out = out + (per_row(lambda t: shared(cfg, sh, t), x) if rowwise
+                     else shared(cfg, sh, x))
     return out, logits, probs, ids
 
 
@@ -196,6 +266,21 @@ def moe_forward(cfg, p, x, *, grouped: bool = False):
         parts.append([t[:n] for t in _block(cfg, p, xg, C)])
     out, *routed = (t[0] if len(parts) == 1 else torch.cat(t)
                     for t in zip(*parts))
+    return out, routed
+
+
+def moe_verify(cfg, p, x):
+    """A speculative verify chunk x (B, S, d) -> (out, (logits, probs,
+    ids)): JAX's function, the chunk's S x K copies a row dispatched at
+    ``capacity(cfg, S)`` and a copy past it dropped (a decode step, S =
+    1, drops none), with the router and the shared experts run per
+    position at a decode step's M. Where ``capacity(cfg, S)`` is a decode
+    step's C (S <= 31 in the full configs, S <= 7 in the smoke ones), the
+    expert products run at a decode step's M too, and a row's bits do
+    not follow its slot in them: where no copy is dropped, the chunk has
+    the bits of S decode steps."""
+    out, *routed = _block(cfg, p, x, capacity(cfg, x.shape[1]),
+                          rowwise=True)
     return out, routed
 
 

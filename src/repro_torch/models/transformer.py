@@ -184,9 +184,30 @@ def _rglru_step_padded(cfg, p, x, B, state):
     return delta
 
 
+def _moe(cfg, p, h, mode, cache, n, aux):
+    """The MoE block on h: (out, aux terms of the first ``n`` rows or
+    None). A verify chunk is routed whole (``moe.moe_verify``); a
+    serving prefill's or chunk's rows run in groups of a fixed size, so
+    the expert products' M is C slots a row whatever the join (see
+    models/moe.py); a decode step and a forward without caches (training)
+    run the batch at once."""
+    if mode == "verify":
+        f, routed = moe_mod.moe_verify(cfg, p, h)
+    else:
+        f, routed = moe_mod.moe_forward(
+            cfg, p, h, grouped=mode == "chunk" or (mode == "full"
+                                                   and cache is not None))
+    if not aux:
+        return f, None
+    a = moe_mod.moe_aux(cfg, *(t[:n] for t in routed))
+    return f, torch.stack([a["load_balance_loss"], a["router_z"]])
+
+
 def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                  plain_attention, plain_matmul, rope, decode_width=None,
-                 partition=None, long_ctx=False, aux=None):
+                 partition=None, long_ctx=False, aux=False):
+    """One block: (x, the (2,) fp32 (load-balance, router-z) terms of an
+    MoE block's rows with ``aux``, else None)."""
     if kind == "rglru":
         if mode == "decode":
             delta = _rglru_step_padded(cfg, p["rglru"], x,
@@ -196,8 +217,10 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                                              plain_scan=plain_attention)
         x = x + delta
         h = apply_norm(cfg, p["norm2"], x)
-        return x + mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
+        return x + mlp_apply(cfg, p["mlp"], h,
+                             plain_matmul=plain_matmul), None
     window = _window(cfg, kind, long_ctx)
+    n = positions.shape[0]        # a padded step's rows past n left out
     if mode == "verify":          # row-wise work at a decode step's M
         h = attn_mod.per_row(lambda t: apply_norm(cfg, p["norm1"], t), x)
         a, _ = attn_mod.attn_verify_chunk(
@@ -205,10 +228,16 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
             plain_attention=plain_attention, plain_matmul=plain_matmul,
             partition=partition)
         x = x + _post_norm(cfg, p, "post_norm1", a, mode)
-        f = attn_mod.per_row(
-            lambda t: mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], t),
-                                plain_matmul=plain_matmul), x)
-        return x + _post_norm(cfg, p, "post_norm2", f, mode)
+        if cfg.moe is not None:
+            h = attn_mod.per_row(lambda t: apply_norm(cfg, p["norm2"], t),
+                                 x)
+            f, terms = _moe(cfg, p["moe"], h, mode, cache, n, aux)
+        else:
+            f, terms = attn_mod.per_row(
+                lambda t: mlp_apply(cfg, p["mlp"],
+                                    apply_norm(cfg, p["norm2"], t),
+                                    plain_matmul=plain_matmul), x), None
+        return x + _post_norm(cfg, p, "post_norm2", f, mode), terms
     h = apply_norm(cfg, p["norm1"], x)
     if mode == "decode":
         a, _ = attn_mod.attn_decode(cfg, p["attn"], h, positions, cache,
@@ -229,17 +258,11 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
     x = x + _post_norm(cfg, p, "post_norm1", a, mode)
     h = apply_norm(cfg, p["norm2"], x)
     if cfg.moe is not None:
-        # a prefill's or chunk's rows in groups of a fixed size: the expert
-        # products' M is C slots a row (see models/moe.py)
-        f, routed = moe_mod.moe_forward(cfg, p["moe"], h,
-                                        grouped=mode != "decode")
-        if aux is not None:      # a padded decode step's rows left out
-            n = positions.shape[0]
-            a = moe_mod.moe_aux(cfg, *(t[:n] for t in routed))
-            aux.append(torch.stack([a["load_balance_loss"], a["router_z"]]))
+        f, terms = _moe(cfg, p["moe"], h, mode, cache, n, aux)
     else:
-        f = mlp_apply(cfg, p["mlp"], h, plain_matmul=plain_matmul)
-    return x + _post_norm(cfg, p, "post_norm2", f, mode)
+        f, terms = mlp_apply(cfg, p["mlp"], h,
+                             plain_matmul=plain_matmul), None
+    return x + _post_norm(cfg, p, "post_norm2", f, mode), terms
 
 
 def forward(cfg: ModelConfig, params, *, tokens, positions=None,
@@ -293,9 +316,9 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     A ``cfg.moe`` model runs ``models/moe.py``'s block in place of the
     MLP; ``return_aux`` then returns (out, aux), aux the (2,) fp32 sum over
     the stack of each block's (load-balance, router-z) terms, as JAX's
-    third return value (zeros without MoE). An MoE model has no verify
-    mode: JAX's verify routes the whole (B, k + 1) chunk at its capacity,
-    which a per-position verify cannot reproduce."""
+    third return value (zeros without MoE). In verify mode an MoE block
+    routes the whole (B, S) chunk at its capacity as JAX's does, with the
+    router and the shared experts per position (``moe.moe_verify``)."""
     if mode not in ("full", "decode", "chunk", "verify"):
         raise ValueError(f"mode must be 'full', 'decode', 'chunk' or "
                          f"'verify', got {mode!r}")
@@ -303,10 +326,6 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
                                 for k in cfg.pattern):
         raise ValueError(f"mode='verify' needs a pure global-attention "
                          f"pattern (pattern={cfg.pattern!r})")
-    if mode == "verify" and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mode='verify' (speculative decoding) with an MoE "
-            f"block is ROADMAP Queue 1 item 13")
     if mode != "full" and (caches is None or positions is None):
         raise ValueError(f"mode={mode!r} needs caches and positions")
     _check_supported(cfg)
@@ -325,7 +344,7 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
         x = attn_mod.pad_rows(x, decode_width)
     rope = (None if cfg.attn.rope_base is None or mode == "verify" else
             rope_angles(positions, cfg.head_dim_, cfg.attn.rope_base))
-    aux = [] if return_aux else None
+    aux = []
     for j, kind in enumerate(cfg.pattern):     # JAX's order: see the top
         blk = params["blocks"][f"blk{j}"]
         cache_blk = caches[f"blk{j}"] if caches is not None else None
@@ -336,14 +355,16 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
                       plain_attention=plain_attention,
                       plain_matmul=plain_matmul, rope=rope,
                       decode_width=decode_width, partition=partition,
-                      long_ctx=long_ctx, aux=aux)
+                      long_ctx=long_ctx, aux=return_aux)
             if remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(
+                x, terms = torch.utils.checkpoint.checkpoint(
                     _apply_block, cfg, kind, _index_tree(blk, i), x,
                     positions, cache, use_reentrant=False, **kw)
             else:
-                x = _apply_block(cfg, kind, _index_tree(blk, i), x,
-                                 positions, cache, **kw)
+                x, terms = _apply_block(cfg, kind, _index_tree(blk, i), x,
+                                        positions, cache, **kw)
+            if terms is not None:
+                aux.append(terms)
     if mode == "verify":
         return attn_mod.per_row(lambda t: _final(cfg, params, t,
                                                  return_hidden, head_w),
@@ -408,7 +429,8 @@ def verify_chunk(cfg, params, tokens, positions, caches, **kw):
     ``verify_chunk``). tokens/positions: (B, S). Each query attends
     through K2 over the ring its chunk wrote first, and every row-wise
     product runs per position at a decode step's M (``mode="verify"``
-    of ``forward``, whose ``partition`` it takes).
+    of ``forward``, whose ``partition`` it takes); an MoE block routes
+    the chunk whole, as JAX's does (``moe.moe_verify``).
     Returns logits (B, S, padded_vocab)."""
     return forward(cfg, params, tokens=tokens, positions=positions,
                    caches=caches, mode="verify", **kw)

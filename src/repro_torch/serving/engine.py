@@ -49,7 +49,9 @@ rounds in place of decode segments (``draft=(draft_cfg, draft_params)``,
 ``spec_k`` proposals a round), three captured programs more: the draft's
 whole-prompt prefill per (bucket, join size), the round per (bucket,
 width, sampled) and the per-row rollback of both pools per (bucket,
-width); its token streams are the plain engine's, bit for bit.
+width); its token streams are the plain engine's, bit for bit (for an
+MoE target, where no verify chunk drops a copy: JAX's verify routes the
+chunk whole at its capacity, which a decode step never fills).
 """
 from __future__ import annotations
 
@@ -264,11 +266,6 @@ def _check_config(ec: EngineConfig, cfg, draft_cfg=None,
                 f"sliding-window rings and recurrent states cannot be "
                 f"replayed at an absolute KV offset "
                 f"(pattern={cfg.pattern!r})")
-    if ec.spec_decode and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: spec_decode with an MoE block (JAX's verify "
-            f"routes the whole chunk at its capacity) is ROADMAP Queue 1 "
-            f"item 13")
     if ec.spec_decode:
         if ec.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {ec.spec_k}")

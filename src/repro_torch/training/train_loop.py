@@ -4,12 +4,13 @@
 Gradients come from ``torch.autograd`` over the port's forward, whose
 sequence-mixing sites run K1 and K5 forward and backward on the card
 (``kernels/ops.py``); ``value_and_grad`` stands in for
-``jax.value_and_grad(..., has_aux=True)``. No mixture-of-experts block is
-ported (ROADMAP Queue 1 item 13), so the load-balance and router-z terms
-are 0 and the metrics keep JAX's keys. Not ported: batches with
-``enc_embeds`` (whisper) or ``prefix_embeds`` (the VLM), item 13; the
-sequence-sharded step and the dry run's cost mode, mesh code of item 14.
-Each raises.
+``jax.value_and_grad(..., has_aux=True)``. An MoE model's loss adds its
+stack's load-balance and router-z terms as JAX's does (0.01 and 1e-3
+times them); the backward through its dispatch gives the same bits
+every call (``models/moe.py``). Not ported: batches with
+``enc_embeds`` (whisper) or ``prefix_embeds`` (the VLM), ROADMAP Queue 1
+item 13; the sequence-sharded step and the dry run's cost mode, mesh
+code of item 14. Each raises.
 """
 from __future__ import annotations
 
@@ -80,18 +81,14 @@ def loss_fn(cfg, params, batch, *, remat=True, seq_shard=False,
             plain_attention=False):
     """batch: {"tokens": (B, S+1) int}. Labels are the tokens shifted by
     one; labels of -1 are masked. Returns (loss, {"nll", "load_balance",
-    "router_z"}). ``plain_attention`` runs ``naive_attention`` and the
+    "router_z"}), the aux terms summed over an MoE stack (0 without
+    one). ``plain_attention`` runs ``naive_attention`` and the
     plain scan instead of K1 and K5 (the reference path the card's
     gradients are held against)."""
     if seq_shard:
         raise NotImplementedError(
             "seq_shard: the sequence-sharded step is mesh code, ROADMAP "
             "Queue 1 item 14")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training an MoE model (its load-balance and "
-            f"router-z terms, a backward through the dispatch) is ROADMAP "
-            f"Queue 1 item 13")
     for key in ("enc_embeds", "prefix_embeds"):
         if key in batch:
             raise NotImplementedError(
@@ -99,12 +96,12 @@ def loss_fn(cfg, params, batch, *, remat=True, seq_shard=False,
                 f"vision prefix) are ROADMAP Queue 1 item 13")
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    hidden = forward(cfg, params, tokens=inputs, remat=remat,
-                     return_hidden=True, plain_attention=plain_attention)
+    hidden, aux = forward(cfg, params, tokens=inputs, remat=remat,
+                          return_hidden=True, return_aux=True,
+                          plain_attention=plain_attention)
     valid = labels >= 0
     nll = chunked_ce(cfg, params, hidden, labels, valid)
-    zero = torch.zeros((), dtype=torch.float32, device=nll.device)
-    lb, rz = zero, zero           # MoE models are refused above
+    lb, rz = aux[0], aux[1]
     total = nll + 0.01 * lb + 1e-3 * rz
     return total, {"nll": nll, "load_balance": lb, "router_z": rz}
 
