@@ -13,11 +13,12 @@ the shapes whose rows part and by how much, and each library's summed
 time of the projections at M = 8192 and 16 (CUDA events, 20 calls after
 3), beside the card's name and power limit. Exits non-zero without CUDA.
 
-    python3 chip_blas_rows.py --scan K N
+    python3 chip_blas_rows.py --scan K N [--fp32] [LO HI STEP]
 
-prints instead, under cublasLt, the groups of M (128 to 4096 in steps of
-32) whose first 128 rows of ``x[:M] @ w`` are the same bits, for one
-(K, N): where a prefill's M may fall for a model with that product.
+prints instead, under cublasLt, the groups of M (LO to HI in steps of
+STEP, default 128 to 4096 by 32) whose first LO rows of ``x[:M] @ w``
+are the same bits, for one (K, N), in bf16 or (``--fp32``) fp32: where
+a prefill's M may fall for a model with that product.
 The port prefers cublasLt on the card (set when ``repro_torch`` is
 imported) and pads a decode step's rows to the engine's ``max_batch``
 (``forward``'s ``decode_width``); this script is the measurement behind
@@ -81,16 +82,16 @@ def parts(gen):
     return bad, ms
 
 
-def scan(K, N, Ms=range(128, 4097, 32)):
-    """Groups of M (in order of first appearance) whose rows 0-127 of a
-    (M, K) x (K, N) bf16 product are the same bits."""
+def scan(K, N, Ms=range(128, 4097, 32), dtype=torch.bfloat16):
+    """Groups of M (in order of first appearance) whose first min(Ms)
+    rows of a (M, K) x (K, N) product in ``dtype`` are the same bits."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    w = (torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5).bfloat16()
-    x = torch.randn(max(Ms), K, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5).to(dtype)
+    x = torch.randn(max(Ms), K, device="cuda", generator=gen).to(dtype)
     groups = []
     for M in Ms:
-        rows = (x[:M] @ w)[:128]
+        rows = (x[:M] @ w)[:min(Ms)]
         for g in groups:
             if torch.equal(g[0], rows):
                 g[1].append(M)
@@ -110,10 +111,14 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     if sys.argv[1:2] == ["--scan"]:
         K, N = int(sys.argv[2]), int(sys.argv[3])
+        rest = sys.argv[4:]
+        dtype = torch.float32 if "--fp32" in rest else torch.bfloat16
+        lo, hi, step = ([int(a) for a in rest if a != "--fp32"]
+                        or [128, 4096, 32])
         torch.backends.cuda.preferred_blas_library("cublaslt")
-        for i, ms in enumerate(scan(K, N)):
-            print(f"cublaslt K={K} N={N}: bits {i}: M = {ms} [{card}]",
-                  flush=True)
+        for i, ms in enumerate(scan(K, N, range(lo, hi + 1, step), dtype)):
+            print(f"cublaslt K={K} N={N} {str(dtype)[6:]}: bits {i}: M = "
+                  f"{ms} [{card}]", flush=True)
         return 0
     for lib in ("cublas", "cublaslt"):
         torch.backends.cuda.preferred_blas_library(lib)

@@ -172,7 +172,8 @@ Phases (each raises on failure; nothing is caught):
      time cold (its chunk programs) against warm (one hit program);
  26. (after phase 20) the deploy lab's decoder scenarios
      (``--staggered --prefix-cache --quant --spec-decode``, full-width
-     Qwen2-0.5B, the CLI's defaults) over the 21 paper profiles:
+     Qwen2-0.5B, the CLI's defaults) over four of the 21 paper profiles
+     (``LAB_PROFILES``):
      records, cells and compile-clean windows checked, the
      ``prefix_cache`` and ``quant`` cells printed per profile and the
      ``spec_decode`` cells for AWS/C, AWS/G and Azure/A, the grid
@@ -261,6 +262,19 @@ Phases (each raises on failure; nothing is caught):
      requests (one of 500 tokens, chunk by chunk) through the
      continuous decoder at max_batch 8, ``prefill_chunk=128``, served
      twice as in phase 30, and phase 21's and 22's rules at width 8.
+ 32. qwen2-moe-a2.7b at 24 layers, served and spec-decoded, and the two
+     larger MoE configs cut in depth (``phase_moe``);
+ 33. MoE training (``phase_train_moe``);
+ 34. xlstm-125m at full size, on an emptied card (``phase_xlstm``): (a)
+     an mLSTM and the sLSTM block in bf16 against fp32, and the mLSTM's
+     parallel form against its recurrence at JAX's tolerances; (b) 32
+     requests served twice through the continuous decoder with
+     ``prefill_chunk=128`` and 32 short ones through the batch decoder
+     (tokens/s, peak memory, every program's build seconds), and the
+     decode step captured against uncaptured; (c) phase 22's rule at
+     joins of 1-16 in buckets 32 and 128 and decode widths 1-16; (d) 10
+     train steps at B=8 x 512, two backwards bit-equal. No kernel of
+     K1-K5 runs there.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its design and
 its instantiations' registers), then as the last line
@@ -3373,22 +3387,27 @@ def whole_donor(cfg, params, base, C, name, tie, kv_quant, rng):
 
 
 # ------------------------------------------------- the lab's decoder cells
+LAB_PROFILES = ("AWS/C", "AWS/G", "GCP/C", "Azure/A")
+
+
 def phase_lab_decoder(kernels, name):
     """26. The deploy lab's decoder scenarios on the card:
     ``repro_torch.launch.experiment.main`` with ``--staggered
     --prefix-cache --quant --spec-decode --arch qwen2-0.5b`` at the CLI's
     defaults (spec_k 4, self-drafted)
     (buckets 16/32, max_batch 4, chunks of 8, 8 requests 50 ms apart, 8
-    new tokens) over the 21 paper profiles, full-width Qwen2-0.5B. Every
+    new tokens) over LAB_PROFILES, four of the 21 paper profiles (every
+    profile runs the same engines and differs only in its prices; all 21
+    took about 90 s until phase 34 needed the time), full-width
+    Qwen2-0.5B. Every
     record must carry JAX's fields, its cells finite, its decoder window
     compile-clean with 64 tokens; the drift report's ``prefix_cache``,
     ``quant`` and ``spec_decode`` cells (one per profile) are printed,
-    the last for AWS/C, AWS/G and Azure/A (all 21 in the drift report).
+    the last for AWS/C, AWS/G and Azure/A (all four in the drift report).
     K2's S > 1 launches are counted over the measured windows (from each
     ``engine.window()`` to the next, ``window_launches``) and must be
     one a layer for each round the ``_sd`` windows report. Returns
     (K1..K5 launches, K2's S > 1 launches in the windows)."""
-    from repro_torch.deploy.profiles import paper_profiles
     from repro_torch.deploy.runner import RECORD_FIELDS, read_jsonl
     from repro_torch.launch import experiment
     out_dir = Path(__file__).resolve().parent / "chiprun_out" / "lab"
@@ -3397,6 +3416,7 @@ def phase_lab_decoder(kernels, name):
     with window_launches(lambda: kernels[1].verify_launches) as in_windows:
         experiment.main(["--staggered", "--prefix-cache", "--quant",
                          "--spec-decode", "--arch", "qwen2-0.5b",
+                         "--profiles", *LAB_PROFILES,
                          "--out-dir", str(out_dir)])
     launches = tuple(fn.launches for fn in kernels)
     verify = in_windows[0]
@@ -3406,7 +3426,7 @@ def phase_lab_decoder(kernels, name):
     names = ["ladder", "staggered", "staggered_shared",
              "staggered_shared_pc", "staggered_quant", "staggered_quant_q8",
              "staggered_spec", "staggered_spec_sd"]
-    n_prof = len(paper_profiles())
+    n_prof = len(LAB_PROFILES)
     if [r["scenario"]["name"] for r in rows] != [
             n for n in names for _ in range(n_prof)]:
         raise AssertionError("lab records: not one per (scenario, profile)")
@@ -6267,6 +6287,437 @@ def phase_moe(fa, da, kernels, attn_block_sizes, name):
     return (k1, k2, depth), rows, out, spec
 
 
+# ------------------------------------------------------ 34. xlstm-125m
+XLSTM_SERVE = dict(max_batch=16, buckets=(128, 512), new=32, chunk=128)
+XLSTM_BATCH_BUCKETS = (32, 128)    # (b): the batch decoder steps whole
+# prompts; a bucket-512 batch's program took 20-27 s to build on the H100
+XLSTM_BLOCK = dict(B=4, S=300)     # (a): past the 256-position chunk seam
+XLSTM_BF16_TOL = 5e-2              # (a): bf16 block vs fp32, of its largest
+XLSTM_PAR_TOL = dict(out=(2e-3, 2e-2), state=(1e-3, 1e-2))  # JAX's own
+XLSTM_TIMED = dict(B=16, S=128)    # (a): one layer's prefill timed
+XLSTM_ROW_BUCKETS = (32, 128)      # (c)
+XLSTM_JOINS = (1, 2, 4, 8, 15, 16)
+XLSTM_WIDTHS = (1, 2, 4, 8, 16)
+XLSTM_TRAIN = dict(B=8, S=512, steps=10)
+
+
+def within(a, b, atol, rtol):
+    """max |a - b| - (atol + rtol |b|) <= 0, and that margin's worst."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def xlstm_blocks(cfg, params, name):
+    """34 (a). One mLSTM block (blk0, period 0) and the sLSTM block (blk5,
+    period 0) of xlstm-125m at full width, on x of (B, S) = XLSTM_BLOCK
+    drawn on the card: each bf16 block (the mLSTM from no state, its
+    chunkwise-parallel form, and from its initial state, the recurrence;
+    the sLSTM's recurrence) against the same block in fp32 on the same
+    inputs, within XLSTM_BF16_TOL of the fp32 output's largest magnitude;
+    the fp32 mLSTM's parallel form against its recurrence (output and
+    final state) at the tolerances JAX holds its own two forms to
+    (``tests/test_attention.py:83``). Then one bf16 mLSTM layer's prefill
+    of XLSTM_TIMED timed both ways (CUDA events), and the sLSTM's
+    recurrence: the cost of a served prefill, which steps. Returns
+    {what: ms}."""
+    from repro_torch.models import transformer as tm
+    from repro_torch.models import xlstm as xm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(34)
+    B, S = XLSTM_BLOCK["B"], XLSTM_BLOCK["S"]
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    times = {}
+    with torch.inference_mode():
+        for kind in ("mlstm", "slstm"):
+            j = cfg.pattern.index(kind)
+            p = tm._index_tree(params["blocks"][f"blk{j}"], 0)[kind]
+            p32 = to_fp32(p)
+            apply = getattr(xm, f"{kind}_apply")
+            initial = getattr(xm, f"{kind}_state")
+            x16 = randn(gen, B, S, cfg.d_model, dtype=torch.bfloat16)
+            x32 = x16.float()
+            forms = {"from no state": None}
+            if kind == "mlstm":
+                forms["recurrence"] = "state"
+            ref = {}
+            for form, st in forms.items():
+                def run(c, pp, x):
+                    return apply(c, pp, x, None if st is None
+                                 else initial(c, B, device="cuda"))
+                got, _ = run(cfg, p, x16)
+                ref[form] = run(c32, p32, x32)
+                want = ref[form][0]
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"34 (a) {kind} {form}: "
+                                         f"non-finite bf16 output")
+                err = (got.float() - want).abs().max().item()
+                scale = want.abs().max().item()
+                print(f"34 (a) xlstm-125m {kind} block bf16 vs fp32 "
+                      f"({form}), (B, S) = ({B}, {S}): max_abs_err "
+                      f"{err:.4e} against the fp32 output's largest "
+                      f"{scale:.4e} ({err / scale:.3e}; bound "
+                      f"{XLSTM_BF16_TOL})", flush=True)
+                if err > XLSTM_BF16_TOL * scale:
+                    raise AssertionError(f"34 (a) {kind} {form}: bf16 "
+                                         f"strays {err / scale:.3e} of the "
+                                         f"fp32 output's largest")
+            if kind == "mlstm":
+                (par, spar), (rec, srec) = ref["from no state"], \
+                    ref["recurrence"]
+                margin = {"out": within(par, rec, *XLSTM_PAR_TOL["out"])}
+                for k in ("C", "n", "m"):
+                    margin[k] = within(spar[k], srec[k],
+                                       *XLSTM_PAR_TOL["state"])
+                print(f"34 (a) xlstm-125m mlstm fp32 parallel form vs "
+                      f"recurrence over {S} positions: worst margin to "
+                      f"the bound (atol + rtol |b|, out "
+                      f"{XLSTM_PAR_TOL['out']}, states "
+                      f"{XLSTM_PAR_TOL['state']}) {margin}; out max "
+                      f"difference {(par - rec).abs().max().item():.4e}",
+                      flush=True)
+                if max(margin.values()) > 0:
+                    raise AssertionError(f"34 (a): the mLSTM's two forms "
+                                         f"part: {margin}")
+            del ref
+            Bt, St = XLSTM_TIMED["B"], XLSTM_TIMED["S"]
+            xt = randn(gen, Bt, St, cfg.d_model, dtype=torch.bfloat16)
+            if kind == "mlstm":
+                times["mlstm parallel"] = cuda_ms(
+                    lambda: apply(cfg, p, xt), iters=3, warmup=1)
+            times[f"{kind} recurrence"] = cuda_ms(
+                lambda: apply(cfg, p, xt, initial(cfg, Bt, device="cuda")),
+                iters=3, warmup=1)
+    print(f"34 (a) one xlstm-125m layer's prefill, B={XLSTM_TIMED['B']} "
+          f"S={XLSTM_TIMED['S']} bf16 (CUDA events, uncaptured): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" [{name}]", flush=True)
+    return times
+
+
+@contextlib.contextmanager
+def build_clock():
+    """Yield a dict that, by the end of the block, maps each program key
+    a ``GraphCache`` built in it to the seconds its build took (the
+    warm-up run and the capture, the card synchronized around both)."""
+    from repro_torch.serving import graphs
+    orig = graphs.GraphCache._warm_and_capture
+    times = {}
+
+    def timed(self, key, fn, args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, key, fn, args)
+        torch.cuda.synchronize()
+        times[key] = time.perf_counter() - t0
+        return out
+    graphs.GraphCache._warm_and_capture = timed
+    try:
+        yield times
+    finally:
+        graphs.GraphCache._warm_and_capture = orig
+
+
+def xlstm_serve(cfg, params, kernels, ec, load, label, name, mem0):
+    """34 (b). ``ec``'s engine serves ``load`` twice, all requests at
+    once: the first pass builds each program at its first call (timed by
+    ``build_clock``), the second replays them (and builds a join size it
+    had not formed, printed). The passes' streams must be
+    equal and the second pass must launch no kernel of K1-K5 (xLSTM runs
+    none). Prints tokens/s, the peak device memory over the phase's start
+    and every program's build seconds. Returns (K1..K5 launches, the
+    second pass's streams, {key: build seconds})."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, EngineConfig(**ec), device="cuda")
+    try:
+        with build_clock() as builds:
+            t0 = time.perf_counter()
+            first, _ = serve_load(eng, load, 0.0)
+            t_first = time.perf_counter() - t0
+        reset_launches(kernels)
+        with build_clock() as rebuilt:
+            second, wall = serve_load(eng, load, 0.0)
+        launches = tuple(fn.launches for fn in kernels)
+    finally:
+        eng.close()
+    del eng
+    gc_mod.collect()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    torch.cuda.empty_cache()
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(first, second))
+    n_tok = sum(len(r.tokens) for r in second)
+    print(f"{label}: first pass (builds {len(builds)} programs as they "
+          f"come; the second builds {len(rebuilt)}) "
+          f"{t_first:.1f} s; second pass {len(load)} requests, "
+          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+          f"{same} of {len(load)} token-identical across the passes; peak "
+          f"device memory {peak:,} B over the phase's start; K1..K5 "
+          f"launches {launches} [{name}]", flush=True)
+    by_kind = {}
+    for key, s in builds.items():
+        by_kind.setdefault(key[0], []).append(s)
+    print(f"{label}: build seconds (warm-up run + capture) by program: "
+          + "; ".join(f"{k!r} {s:.2f}" for k, s in sorted(
+              builds.items(), key=lambda kv: -kv[1]))
+          + " | by kind: " + ", ".join(
+              f"{k} {len(v)} programs {sum(v):.1f} s (max {max(v):.2f})"
+              for k, v in by_kind.items()), flush=True)
+    if same != len(load) or any(launches):
+        raise AssertionError(f"{label}: {same} of {len(load)} streams equal "
+                             f"across passes, launches {launches}")
+    return launches, [np.asarray(r.tokens) for r in second], builds
+
+
+def xlstm_step_reading(cfg, params, name, width=16, bucket=128):
+    """34 (b). The decode step program at B = ``width`` over states filled
+    by a bucket-``bucket`` prefill (greedy). A step advances the states
+    it reads, so phase 21's rule runs on the step with the states first
+    restored from a copy (a function of its inputs alone): captured,
+    replayed in sync debug mode "error", bit for bit against the same
+    call uncaptured. Then the step alone, captured and uncaptured, read
+    by the profiler (wall, kernels, device idle). Returns the two
+    readings."""
+    from repro_torch.models import forward, make_caches
+    from repro_torch.models.layers import head_weight
+    from repro_torch.serving.graphs import GraphCache
+    rng = np.random.default_rng(341)
+    _, toks, lens = prompt_batch(rng, width, 8, bucket - 8, bucket,
+                                 cfg.vocab_size)
+    tt, lt = (torch.from_numpy(x).cuda() for x in (toks, lens))
+    w = head_weight(cfg, params.get("lm_head"), params["embed"])
+    caches = make_caches(cfg, width, bucket + XLSTM_SERVE["new"],
+                         dtype=torch.float32, device="cuda")
+    label = (f"34 (b) xlstm-125m decode step program B={width} after a "
+             f"bucket-{bucket} prefill, greedy")
+    with torch.inference_mode():
+        forward(cfg, params, tokens=tt, caches=caches, return_hidden=True)
+        saved = slice_caches(caches, width)
+        args = (tt[:, :1].to(torch.int32), lt[:, None])
+
+        def step(t, p):
+            return forward(cfg, params, tokens=t, positions=p, caches=caches,
+                           mode="decode", head_w=w,
+                           decode_width=width)[:, 0]
+
+        def restored(t, p):
+            for b, blk in caches.items():
+                for k, t_ in blk.items():
+                    t_.copy_(saved[b][k])
+            return step(t, p)
+        gc = GraphCache("cuda")
+        diff = replay_diff(gc, ("restored step",), restored, args,
+                           restored(*args))
+        print(f"{label}: the step with its states restored, captured "
+              f"replay vs direct uncaptured call: max difference {diff} "
+              f"(replayed in sync debug mode 'error')", flush=True)
+        if diff != 0:
+            raise AssertionError(f"{label}: captured differs from "
+                                 f"uncaptured by {diff}")
+        cap = program_reading(lambda: gc.run(("step",), step, *args))
+        unc = program_reading(lambda: step(*args))
+    print(f"  captured:   {fmt_reading(cap)} [{name}]", flush=True)
+    print(f"  uncaptured: {fmt_reading(unc)} [{name}]", flush=True)
+    del caches, saved
+    return cap, unc
+
+
+def xlstm_prefill_reading(cfg, params, name, width=16, bucket=128):
+    """34 (b). What a served prefill's steps cost: a join of ``width``
+    prompts of ``bucket`` tokens through ``forward`` into caches (the
+    recurrence, step by step, as the engine's prefill runs it) captured
+    and replayed, against the same tokens without caches (the mLSTM's
+    chunkwise-parallel form; the sLSTM steps in both), uncaptured; both
+    read by the profiler (wall, kernels, device idle). Returns the two
+    readings."""
+    from repro_torch.models import forward, make_caches
+    from repro_torch.serving.graphs import GraphCache
+    rng = np.random.default_rng(342)
+    _, toks, _ = prompt_batch(rng, width, bucket, bucket, bucket,
+                              cfg.vocab_size)
+    tt = torch.from_numpy(toks).cuda()
+    caches = make_caches(cfg, width, bucket + XLSTM_SERVE["new"],
+                         dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        def stepped(t):
+            return forward(cfg, params, tokens=t, caches=caches,
+                           return_hidden=True)
+        gc = GraphCache("cuda")
+        steps = program_reading(lambda: gc.run(("prefill",), stepped, tt),
+                                n_wall=5)
+        parallel = program_reading(lambda: forward(
+            cfg, params, tokens=tt, return_hidden=True), n_wall=5)
+    print(f"34 (b) xlstm-125m prefill of a join of {width} at bucket "
+          f"{bucket}: into caches, step by step, captured: "
+          f"{fmt_reading(steps)}; without caches (the mLSTM's parallel "
+          f"form), uncaptured: {fmt_reading(parallel)} [{name}]",
+          flush=True)
+    del caches
+    return steps, parallel
+
+
+def xlstm_train(cfg, params, kernels, bwd, name, mem0):
+    """34 (d). xlstm-125m trained at full size in bf16 on SyntheticLM
+    batches of XLSTM_TRAIN (remat on: the mLSTM blocks in their parallel
+    form, each query chunk under its own checkpoint; the sLSTM blocks'
+    recurrence through ``_SLSTMRecurrence``, its backward through time
+    step by step): two backward calls on one batch bit-equal in every
+    leaf; XLSTM_TRAIN["steps"] ``train_step``s, each launching no kernel
+    of K1-K5 or their backwards, the loss finite and falling; the step's
+    wall (the median of steps 2 on), its parts by CUDA events (forward +
+    CE without grad, forward + remat + backward, AdamW, and one sLSTM
+    block's forward and backward alone) and the peak memory. The
+    profiler is left out: a step runs tens of thousands of kernels, and
+    the profiler's summary of one took about 50 s on the H100, longer
+    than the ten steps.
+    Returns (TRAIN_COUNTERS launches over the steps, the losses)."""
+    from repro_torch.models import transformer as tm
+    from repro_torch.models import xlstm as xm
+    from repro_torch.training import OptConfig, adamw_init, train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_loop import loss_fn, value_and_grad
+    from repro_torch.training.tree import flatten, leaves
+    t_phase = time.perf_counter()
+    B, S, n = XLSTM_TRAIN["B"], XLSTM_TRAIN["S"], XLSTM_TRAIN["steps"]
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  batch_size=B, seed=0))
+    batches = [{"tokens": torch.as_tensor(b["tokens"], device="cuda")}
+               for b in data.batches(n)]
+    grads = [value_and_grad(lambda p: loss_fn(cfg, p, batches[0]),
+                            params)[1] for _ in range(2)]
+    a, b = flatten(grads[0]), flatten(grads[1])
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    print(f"34 (d) xlstm-125m: two backward calls on one batch (B={B} "
+          f"S={S}): {len(a) - len(differ)} of {len(a)} leaves bit-equal "
+          f"[{name}]", flush=True)
+    if differ:
+        raise AssertionError(f"34 (d): leaves whose gradients follow the "
+                             f"call: {differ}")
+    del grads, a, b
+    torch.cuda.empty_cache()
+    oc = OptConfig(lr=1e-3, warmup_steps=2, total_steps=n)
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    label = "34 (d) xlstm-125m train"
+    losses, walls = [], []
+    total = [0] * len(TRAIN_COUNTERS)
+    for i, batch in enumerate(batches):
+        reset_launches(kernels + bwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = train_step(cfg, oc, params, opt, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = train_counts(kernels, bwd)
+        check_step_counts(f"{label} step {i}", counts, {})
+        total = [x + y for x, y in zip(total, counts)]
+        print(f"{label} step {i:3d} loss {losses[-1]:.4f} gnorm "
+              f"{float(m['grad_norm']):.3f} wall {walls[-1]:.1f} ms",
+              flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and all(bool(torch.isfinite(x).all()) for x in leaves(params))):
+        raise AssertionError(f"{label}: the loss did not fall or went "
+                             f"non-finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() - mem0
+    batch = batches[-1]
+
+    def loss_of(p):
+        return loss_fn(cfg, p, batch)
+    with torch.no_grad():
+        t_fwd = cuda_ms(lambda: loss_of(params), iters=1, warmup=0)
+    t_vg = cuda_ms(lambda: value_and_grad(loss_of, params), iters=1,
+                   warmup=0)
+    (_, _), grads = value_and_grad(loss_of, params)
+    t_opt = cuda_ms(lambda: adamw_update(oc, params, grads, opt), iters=1,
+                    warmup=0)
+    del grads
+    j = cfg.pattern.index("slstm")
+    p = tm._index_tree(params["blocks"][f"blk{j}"], 0)["slstm"]
+    x = torch.randn(B, S, cfg.d_model, device="cuda").bfloat16()
+    x.requires_grad_()
+    t_slstm = cuda_ms(lambda: xm.slstm_apply(cfg, p, x)[0].float().sum()
+                      .backward(), iters=1, warmup=0)
+    print(f"{label} step B={B} S={S} bf16 remat: wall "
+          f"{float(np.median(walls[2:])):.1f} ms (median of steps 2-"
+          f"{n - 1}); by events: forward + CE (no grad) {t_fwd:.1f} ms, "
+          f"forward + remat + backward {t_vg:.1f} ms, AdamW {t_opt:.1f} "
+          f"ms, one sLSTM block's forward and backward alone (of "
+          f"{cfg.layer_pattern.count('slstm')}) {t_slstm:.1f} ms; peak "
+          f"memory {peak:,} B over the phase's start; (d) "
+          f"{time.perf_counter() - t_phase:.1f} s [{name}]", flush=True)
+    return tuple(total), losses
+
+
+def phase_xlstm(kernels, bwd, name):
+    """34. xlstm-125m at full size (12 layers: two periods of five mLSTM
+    blocks and one sLSTM, d_model 768, 4 heads, vocab 50,304; random
+    weights from ``init_params(seed=0)``), bf16, on an emptied card:
+    (a) its blocks against fp32 and the mLSTM's two forms against each
+    other (``xlstm_blocks``); (b) 32 requests (16 of 8-120 tokens in
+    bucket 128, 16 of 129-500 in bucket 512, half sampled, 32 new tokens,
+    max_batch 16) served twice through the continuous decoder with
+    ``prefill_chunk=128``, and 32 of 8-120 tokens (those 16 and 16 more)
+    through the batch-at-a-time decoder in buckets 32 and 128, which
+    prefills a batch whole in its longest prompt's bucket
+    (``xlstm_serve``: tokens/s, peak memory, build seconds per program),
+    the decode step program captured against uncaptured
+    (``xlstm_step_reading``) and a join's prefill stepped against the
+    parallel form (``xlstm_prefill_reading``); (c) phase 22's rule: row 0
+    at joins of XLSTM_JOINS in buckets 32 and 128, padded as the engine
+    pads, and at decode widths 1-16 (``row_bits``), bit for bit; (d)
+    training
+    (``xlstm_train``). No kernel of K1-K5 runs on any of these paths.
+    Returns ({serving path: K1..K5 launches}, {training path:
+    TRAIN_COUNTERS launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import params_bytes
+    t0 = time.perf_counter()
+    mem0 = empty_card("34 (xlstm-125m)")
+    cfg = get_config("xlstm-125m")
+    params = init_params(cfg, 0, device="cuda")
+    print(f"xlstm-125m: {cfg.n_layers} layers, pattern {cfg.pattern} x "
+          f"{cfg.n_periods}, weight bytes {params_bytes(params):,} B "
+          f"({cfg.param_count():,} parameters by the config's count) "
+          f"[{name}]", flush=True)
+    xlstm_blocks(cfg, params, name)
+    print(f"34 (a) {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(34)
+    load = big_load(cfg, 34, 16, [int(x) for x in rng.integers(129, 501,
+                                                              16)])
+    short = [r for r in load if len(r[0]) <= 120]
+    short += big_load(cfg, 35, 32 - len(short), [])
+    base = dict(mode="decoder", max_batch=XLSTM_SERVE["max_batch"],
+                max_new_tokens=XLSTM_SERVE["new"])
+    paths = {}
+    for path, ec, reqs in (
+            ("xlstm-125m batch at a time",
+             dict(base, continuous=False, pad_buckets=XLSTM_BATCH_BUCKETS),
+             short),
+            ("xlstm-125m continuous, prefill_chunk=128",
+             dict(base, pad_buckets=XLSTM_SERVE["buckets"],
+                  prefill_chunk=XLSTM_SERVE["chunk"]), load)):
+        paths[path], _, _ = xlstm_serve(cfg, params, kernels, ec, reqs,
+                                        f"34 (b) {path}", name, mem0)
+    xlstm_step_reading(cfg, params, name)
+    xlstm_prefill_reading(cfg, params, name)
+    print(f"34 (b) {time.perf_counter() - t0:.1f} s", flush=True)
+    row_bits(cfg, params, "xlstm-125m", buckets=XLSTM_ROW_BUCKETS,
+             joins=XLSTM_JOINS, widths=XLSTM_WIDTHS, step_bucket=32,
+             new_tokens=XLSTM_SERVE["new"])
+    print(f"34 (c) {time.perf_counter() - t0:.1f} s", flush=True)
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    n_train, _ = xlstm_train(cfg, params, kernels, bwd, name, mem0)
+    train = {f"train xlstm-125m ({XLSTM_TRAIN['steps']} steps)": n_train}
+    del params
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths, train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6807,6 +7258,11 @@ def main() -> int:
     k1bm, train_moe, _ = phase_train_moe(fa, kernels, bwd, attn_block_sizes,
                                          name)
     clock("phase 33")
+
+    # ---- 34. xlstm-125m at full size: its blocks against fp32, served
+    # through both decoders, a row's bits, trained
+    xlstm_serving, xlstm_training = phase_xlstm(kernels, bwd, name)
+    clock("phase 34")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     t_k, t_p, t_s, bound, by = main_times
@@ -6832,23 +7288,26 @@ def main() -> int:
                 **train_paths(i), **big_paths(i)}
 
     def big_paths(i):
-        """Launches of counter i on phases 30-32's paths (the second
-        passes, the prefix engine's warm one, and 32 (d)'s cut models)."""
+        """Launches of counter i on phases 30-32's and 34's paths (the
+        second passes, the prefix engine's warm one, and 32 (d)'s cut
+        models)."""
         int8 = "stablelm-12b int8 W+KV"
         return {"stablelm-12b": big["stablelm-12b"][i],
                 int8: big[int8][i],
                 "stablelm-12b prefix": big["stablelm-12b prefix"][i],
                 "gemma2-27b": gem[i],
-                **{path: n[i] for path, n in moe.items()}}
+                **{path: n[i] for path, n in moe.items()},
+                **{path: n[i] for path, n in xlstm_serving.items()}}
 
     def train_paths(i):
-        """Launches of counter i (TRAIN_COUNTERS) on phases 28 and 33's
-        paths."""
+        """Launches of counter i (TRAIN_COUNTERS) on phases 28, 33 and
+        34's paths."""
         return {f"train Qwen2-0.5B ({TRAIN_STEPS} steps)": train_q[i],
                 f"train GECToR-base ({GECTOR_TRAIN['steps']} steps)":
                     train_g[i],
                 "train RecurrentGemma-9B (one triple, 1 step)": train_h[i],
-                **{path: n[i] for path, n in train_moe.items()}}
+                **{path: n[i] for path, n in train_moe.items()},
+                **{path: n[i] for path, n in xlstm_training.items()}}
 
     def hybrid_row(times, err=None, checked_256=None):
         ms, plain_ms, lib_ms, bound_ms, bound_by = times

@@ -21,7 +21,13 @@ takes the fused layout (16 kv heads), ``wqkv`` as (d, Hkv, G + 2, hd)
 in place of ``wq``/``wk``/``wv``. An MoE tree bridges as it is: each
 block's ``moe`` subtree in place of ``mlp``, its ``router`` (d, E) kept
 fp32, ``experts/w_in`` (E, d, 2, F), ``experts/w_down`` (E, F, d) and
-the ``shared`` experts' ``w_gate``/``w_up``/``w_down``. A tree from the
+the ``shared`` experts' ``w_gate``/``w_up``/``w_down``. An xLSTM tree
+bridges as it is: an ``mlstm`` block's ``mlstm`` subtree (``w_in`` (d,
+2 dp), ``wq``/``wk``/``wv`` (dp, nh, hd), ``w_igate``/``w_fgate`` (dp,
+nh) and their biases in fp32, ``cell_norm`` over dp, ``w_out`` (dp, d))
+and an ``slstm`` block's ``slstm`` subtree (``w_{izfo}`` (d, nh, hd),
+``r_{izfo}`` (nh, hd, hd), ``b_{izfo}`` (nh, hd) fp32, ``cell_norm`` and
+the ``ffn``'s ``w_gate``/``w_up``/``w_down``). A tree from the
 JAX ``quantize_params`` bridges as it is too: each quantized leaf stays a ``{"qw": int8, "scale": fp32}`` dict,
 which the port's ``qeinsum`` reads. The caller converts the JAX arrays
 to numpy (``jax.tree.map(np.asarray, params)``); nothing here imports jax.

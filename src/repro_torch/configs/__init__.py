@@ -17,6 +17,7 @@ _MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b_a6_6b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 

@@ -8,15 +8,17 @@ random requests and prints the engine's metrics.
       --arch recurrentgemma-9b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
   PYTHONPATH=src python -m repro_torch.launch.serve --ladder 1 4 16
 
 ``gector-base`` serves sentences in encoder mode with its edit-tag head;
-``qwen2-0.5b``, ``stablelm-12b``, ``gemma2-27b``, ``recurrentgemma-9b``
-and the MoE models ``qwen2-moe-a2.7b`` (29.3 GB in bf16, whole on one
-H100), ``moonshot-v1-16b-a3b`` (58 GB) and ``phi3.5-moe-42b-a6.6b`` (84
-GB: beyond one card) serve prompts in decoder mode
-through ``generate()``, on the continuous scheduler over the KV pool
-(``--no-continuous``: batch at a time), greedy or sampled at
+``qwen2-0.5b``, ``stablelm-12b``, ``gemma2-27b``, ``recurrentgemma-9b``,
+``xlstm-125m`` (recurrent states, no KV cache) and the MoE models
+``qwen2-moe-a2.7b`` (29.3 GB in bf16, whole on one H100),
+``moonshot-v1-16b-a3b`` (58 GB) and ``phi3.5-moe-42b-a6.6b`` (84 GB:
+beyond one card) serve prompts in decoder mode through ``generate()``,
+on the continuous scheduler over the KV pool (``--no-continuous``: batch
+at a time), greedy or sampled at
 ``--temperature`` (and ``--top-k``) with per-request seeds, stopping at
 ``--eos-id``; ``--stream`` prints the first request's tokens as they
 arrive. ``--ladder NS ...`` instead fires the paper's load ladder at the
@@ -45,7 +47,8 @@ from repro_torch.training.checkpoint import restore
 
 DECODER_ARCHS = ("qwen2-0.5b", "stablelm-12b", "gemma2-27b",
                  "recurrentgemma-9b", "qwen2-moe-a2.7b",
-                 "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b")
+                 "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+                 "xlstm-125m")
 
 
 def _ladder(args, cfg, eng, rng) -> None:

@@ -6,7 +6,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
       --steps 20 --batch 4 --seq 64 --ckpt /tmp/lm.ckpt
 
-Runs on the card (K1 and K5 forward and backward); ``--device cpu
+Runs on the card (K1 and K5 forward and backward; xlstm-125m's mLSTM
+blocks in their chunkwise-parallel form, its sLSTM blocks step by step,
+in torch ops); ``--device cpu
 --smoke`` trains the small config on the CPU. Weights start random from
 seed 0. ``--ckpt`` writes ``{"params", "opt"}`` in the JAX package's
 checkpoint format, which ``repro_torch.launch.serve --ckpt`` serves. There
@@ -33,7 +35,8 @@ from repro_torch.training.optimizer import OptConfig, adamw_init
 from repro_torch.training.train_loop import train_step
 
 ARCHS = ("gector-base", "qwen2-0.5b", "recurrentgemma-9b",
-         "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b")
+         "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+         "xlstm-125m")
 
 
 def main(argv=None):

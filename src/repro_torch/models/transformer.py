@@ -1,14 +1,15 @@
 """Stacked model: init, caches, forward, decode and sampling.
 
-Port of ``repro/models/transformer.py`` for stacks of four blocks:
+Port of ``repro/models/transformer.py`` for stacks of six blocks:
 ``attn`` (global attention, bidirectional for GECToR/BERT or causal),
 ``attn_global`` (the same, named as gemma2's pattern names it),
 ``attn_local`` (causal sliding-window attention over a window-sized ring
-cache) and ``rglru`` (Griffin's recurrent block, ``models/rglru.py``),
-with QKV bias, the fused ``wqkv`` layout, rotary embeddings, a gated MLP
+cache), ``rglru`` (Griffin's recurrent block, ``models/rglru.py``) and
+the xLSTM blocks ``mlstm`` and ``slstm`` (``models/xlstm.py``), with QKV
+bias, the fused ``wqkv`` layout, rotary embeddings, a gated MLP
 or a Mixture-of-Experts block (``models/moe.py``: qwen2-moe, moonshot,
 phi3.5-moe), gemma2's post-norms and softcaps, and tied or untied
-embeddings (Qwen2, stablelm, gemma2, RecurrentGemma). Modes ``full``
+embeddings (Qwen2, stablelm, gemma2, RecurrentGemma, xLSTM). Modes ``full``
 (whole sequences, optionally filling caches), ``decode`` (one step
 against the caches), ``chunk`` (a prefill chunk that continues the
 caches) and ``verify``.
@@ -34,6 +35,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import threefry
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, embed_apply, embed_init,
                                        head_weight, lm_head_apply,
@@ -42,7 +44,11 @@ from repro_torch.models.layers import (apply_norm, embed_apply, embed_init,
                                        rope_angles)
 
 
-BLOCK_KINDS = ("attn", "attn_global", "attn_local", "rglru")
+BLOCK_KINDS = ("attn", "attn_global", "attn_local", "rglru", "mlstm",
+               "slstm")
+# the xLSTM blocks: (apply, initial state) by kind
+_XLSTM = {"mlstm": (xlstm_mod.mlstm_apply, xlstm_mod.mlstm_state),
+          "slstm": (xlstm_mod.slstm_apply, xlstm_mod.slstm_state)}
 
 
 def _check_supported(cfg: ModelConfig):
@@ -51,9 +57,8 @@ def _check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: only stacks of {BLOCK_KINDS} blocks (with dense "
             f"or MoE feed-forwards) without an encoder or a vision prefix "
-            f"are ported (pattern={cfg.pattern!r}); the xLSTM blocks, "
-            f"whisper's encoder and the VLM's prefix are ROADMAP Queue 1 "
-            f"item 13")
+            f"are ported (pattern={cfg.pattern!r}); whisper's encoder and "
+            f"the VLM's prefix are ROADMAP Queue 1 item 13")
 
 
 def _window(cfg, kind, long_ctx):
@@ -68,6 +73,10 @@ def _window(cfg, kind, long_ctx):
 
 
 def _block_init(cfg, kind, gen, device):
+    if kind == "mlstm":
+        return {"mlstm": xlstm_mod.mlstm_init(cfg, gen)}
+    if kind == "slstm":
+        return {"slstm": xlstm_mod.slstm_init(cfg, gen)}
     if kind == "rglru":
         return {"rglru": rglru_mod.rglru_init(cfg, gen),
                 "norm2": norm_init(cfg, device),
@@ -141,13 +150,18 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     for ``attn_local``, a ring of ``min(max_len, window)``, and with
     ``long_ctx`` a global block's capped at
     ``attn.long_ctx_window_cap``; ``{h, conv}`` fp32 zero states for an
-    ``rglru`` block. ``kv_quant="int8"`` gives the attention caches int8
-    K/V with their fp32 scale planes ``k_scale``/``v_scale``."""
+    ``rglru`` block; an xLSTM block's initial state (``mlstm``: ``{C, n,
+    m}`` with m at -1e30; ``slstm``: ``{c, n, h, m}`` zeros).
+    ``kv_quant="int8"`` gives the attention caches int8 K/V with their
+    fp32 scale planes ``k_scale``/``v_scale``; recurrent states stay
+    fp32."""
     _check_supported(cfg)
     caches = {}
     for j, kind in enumerate(cfg.pattern):
         if kind == "rglru":
             one = rglru_mod.rglru_state(cfg, batch, device=device)
+        elif kind in _XLSTM:
+            one = _XLSTM[kind][1](cfg, batch, device=device)
         else:
             one = attn_mod.make_cache(
                 cfg, batch, max_len, dtype=dtype,
@@ -184,6 +198,22 @@ def _rglru_step_padded(cfg, p, x, B, state):
     return delta
 
 
+def _xlstm_step_padded(cfg, kind, p, x, B, state):
+    """An xLSTM block's decode step on every row of x, the padding rows
+    past the state's B included (each from the block's initial state),
+    so that its products run at x's M whatever B is, as
+    ``_rglru_step_padded``; only the B rows' states are written back."""
+    apply, initial = _XLSTM[kind]
+    if x.shape[0] == B:
+        return apply(cfg, p, x, state)[0]
+    pad = initial(cfg, x.shape[0] - B, device=x.device)
+    padded = {k: torch.cat([t, pad[k]]) for k, t in state.items()}
+    delta, _ = apply(cfg, p, x, padded)
+    for k, t in state.items():
+        t.copy_(padded[k][:B])
+    return delta
+
+
 def _moe(cfg, p, h, mode, cache, n, aux):
     """The MoE block on h: (out, aux terms of the first ``n`` rows or
     None). A verify chunk is routed whole (``moe.moe_verify``); a
@@ -207,7 +237,17 @@ def _apply_block(cfg, kind, p, x, positions, cache, *, mode, causal,
                  plain_attention, plain_matmul, rope, decode_width=None,
                  partition=None, long_ctx=False, aux=False):
     """One block: (x, the (2,) fp32 (load-balance, router-z) terms of an
-    MoE block's rows with ``aux``, else None)."""
+    MoE block's rows with ``aux``, else None). An xLSTM block adds its
+    delta: a decode step at x's rows (``_xlstm_step_padded``); otherwise
+    over the sequence from the cache's state, or from none (the mLSTM's
+    parallel form) without caches."""
+    if kind in _XLSTM:
+        if mode == "decode":
+            delta = _xlstm_step_padded(cfg, kind, p[kind], x,
+                                       positions.shape[0], cache)
+        else:
+            delta, _ = _XLSTM[kind][0](cfg, p[kind], x, cache)
+        return x + delta, None
     if kind == "rglru":
         if mode == "decode":
             delta = _rglru_step_padded(cfg, p["rglru"], x,
@@ -301,8 +341,9 @@ def forward(cfg: ModelConfig, params, *, tokens, positions=None,
     RecurrentGemma-9B's (4096, 4096) products (``chip_blas_rows.py``),
     and a row's bits would follow its width. The attention's ring and K2
     (``attention.attn_decode``) see the B rows of ``positions``, an
-    RG-LRU step runs every row on zero states past the B rows and writes
-    back the B rows' states; the padding is cut from the result.
+    RG-LRU step runs every row on zero states past the B rows (an xLSTM
+    step on its block's initial states) and writes back the B rows'
+    states; the padding is cut from the result.
     Parameters may be ``quantize_params``' tree: its int8 projections go
     through K3. With ``cfg.embed_scale`` the embedding is scaled by
     sqrt(d_model), rounded to the model dtype, as JAX does for the Gemma

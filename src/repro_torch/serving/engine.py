@@ -39,7 +39,9 @@ scale planes; both for the plain ``("attn",)`` stack only. The decoder
 serves the RecurrentGemma hybrid and gemma2's alternating local and
 global layers too: their caches hold local-attention rings of
 ``min(bucket + max_new_tokens, window)`` slots (and the RG-LRU blocks'
-recurrent states). ``prefill_chunk`` prefills a prompt longer
+recurrent states), and xlstm-125m, whose caches are its blocks' states
+alone (a prefill steps through the recurrence, as in JAX, since the
+caches carry a state). ``prefill_chunk`` prefills a prompt longer
 than one chunk chunk by chunk into a per-lane staging pool, one chunk per
 scheduler turn between decode segments, one captured program per (bucket,
 rows, chunk, sampled); ``prefix_cache`` keeps finished prompts' KV at
@@ -191,16 +193,33 @@ PREFILL_MIN_M = 128
 PARTING_PRODUCTS = {(4096, 256): 448}
 
 
-def prefill_min_m(cfg) -> int:
-    """The rows of M a prefill of ``cfg`` is padded to at least: the most
-    that ``PARTING_PRODUCTS`` asks of a (K, N) of its layers' attention
-    and MLP products, and at least PREFILL_MIN_M."""
+def _products(cfg) -> set:
+    """The (K, N) of the row-wise products a prefill of ``cfg`` runs at M
+    = rows x bucket: the attention's and MLP's, and an xLSTM block's
+    (the mLSTM's ``w_in``, ``wq``/``wk``/``wv``, gates and ``w_out``; the
+    sLSTM's four input gates and its FFN)."""
     d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
     q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    products = ({(d, q + 2 * kv)} if cfg.fused_qkv else {(d, q), (d, kv)}) \
-        | {(q, d), (d, f), (d, 2 * f), (f, d)}
+    products = set()
+    if any(k.startswith("attn") or k == "rglru" for k in cfg.pattern):
+        products |= ({(d, q + 2 * kv)} if cfg.fused_qkv
+                     else {(d, q), (d, kv)}) \
+            | {(q, d), (d, f), (d, 2 * f), (f, d)}
+    if "mlstm" in cfg.pattern:
+        dp = int(d * cfg.xlstm_proj_factor)
+        products |= {(d, 2 * dp), (dp, dp), (dp, cfg.n_heads), (dp, d)}
+    if "slstm" in cfg.pattern:
+        ff = int(d * 4 / 3)
+        products |= {(d, d), (d, ff), (ff, d)}
+    return products
+
+
+def prefill_min_m(cfg) -> int:
+    """The rows of M a prefill of ``cfg`` is padded to at least: the most
+    that ``PARTING_PRODUCTS`` asks of a (K, N) of its layers' row-wise
+    products (``_products``), and at least PREFILL_MIN_M."""
     return max([PREFILL_MIN_M] + [PARTING_PRODUCTS.get(kn, 0)
-                                  for kn in products])
+                                  for kn in _products(cfg)])
 
 
 def _pad_rows(n: int, *arrays):

@@ -7,7 +7,9 @@ sequence-mixing sites run K1 and K5 forward and backward on the card
 ``jax.value_and_grad(..., has_aux=True)``. An MoE model's loss adds its
 stack's load-balance and router-z terms as JAX's does (0.01 and 1e-3
 times them); the backward through its dispatch gives the same bits
-every call (``models/moe.py``). Not ported: batches with
+every call (``models/moe.py``). An xLSTM model's forward without
+caches runs its mLSTM blocks in the chunkwise-parallel form, each query
+chunk under its own checkpoint, as JAX's does. Not ported: batches with
 ``enc_embeds`` (whisper) or ``prefix_embeds`` (the VLM), ROADMAP Queue 1
 item 13; the sequence-sharded step and the dry run's cost mode, mesh
 code of item 14. Each raises.

@@ -171,7 +171,7 @@ def test_init_params_has_the_jax_layout():
 def test_unported_paths_raise(weights):
     _, tp = weights
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("xlstm-125m")
+        get_config("whisper-large-v3")
     with pytest.raises(ValueError, match="needs caches and positions"):
         forward(CFG, tp["encoder"], tokens=torch.zeros(1, 4, dtype=torch.long),
                 mode="chunk")

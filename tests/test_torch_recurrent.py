@@ -620,11 +620,23 @@ def test_caches_hold_rings_and_states():
 def test_unported_blocks_still_raise(kw):
     """gemma2's local and global blocks are ported: their caches hold the
     local ring at the window and the global ring at max_len. The xLSTM
-    blocks still raise, naming item 13."""
+    blocks are ported too: their caches are the blocks' initial states,
+    the mLSTM's {C, n} zero and m at -1e30, the sLSTM's {c, n, h, m}
+    zero, whatever max_len is."""
     cfg = dataclasses.replace(SMOKE, **kw)
     if "mlstm" in cfg.pattern:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make_caches(cfg, 1, 8, device="cpu")
+        c = make_caches(cfg, 1, 8, device="cpu")
+        nh, hd = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+        assert {k: tuple(t.shape) for k, t in c["blk0"].items()} == {
+            "C": (1, 1, nh, hd, hd), "n": (1, 1, nh, hd), "m": (1, 1, nh)}
+        assert not c["blk0"]["C"].any() and not c["blk0"]["n"].any()
+        assert (c["blk0"]["m"] == -1e30).all()
+        shape = (1, 1, nh, cfg.d_model // nh)
+        assert {k: tuple(t.shape) for k, t in c["blk1"].items()} == {
+            k: shape for k in ("c", "n", "h", "m")}
+        assert not any(t.any() for t in c["blk1"].values())
+        assert all(t.dtype == torch.float32 for b in c.values()
+                   for t in b.values())
         return
     c = make_caches(cfg, 1, 100, device="cpu")
     assert tuple(c["blk0"]["k"].shape) == (1, 1, 64, 1, 64)   # window 64
